@@ -18,26 +18,50 @@ Phases, in order; any failure exits non-zero:
    and waveforms must agree, with the Wiener partition s + n = x;
 4. times (CUDA events, warm): kernel and plain chain per E-step and WF
    segment at main-path shape, the NMF M-step, and the whole
-   ``enhance_batch``, each with the card's name and power limit.
+   ``enhance_batch``, each with the card's name and power limit;
+5. the STFT power kernel against its plain version on the card: power and
+   log epilogues, ``center`` off and on, frame counts off the tile, the
+   end-pad quirk and a short centered signal;
+6. M1 training at full width (``VAE(513, 16, (128, 128))``, batch 128,
+   Adam 1e-4): synthetic clean utterances become the frame set through the
+   STFT power kernel (one launch per frame set), ``fit_vae`` runs a few
+   epochs (finite ELBOs, validation ELBO falling, one ``.pt`` per epoch),
+   and the best ``.pt`` loads into the ``Enhancer``, which enhances the
+   phase-3 batch; again with ``std_norm`` and ``EnhancerConfig(norm=...)``;
+7. audio-VAD training at full width (``LSTMVad(513, 1024, 2)``, batch 16)
+   on synthetic noisy utterances held in memory, their log power taken by
+   the kernel's log epilogue (one launch per batch): finite BCE, falling;
+8. the STFT power kernel held against its plain version, and timed (CUDA
+   events, warm) beside the plain version, ``torch.stft`` and the bound, on
+   each path's own launch: phase 6's train frame set (power) and a phase-7
+   batch (log); then the M1 train step host-fed and on device-resident
+   data, the LSTM train step, and the frame-set build, each with the card's
+   name and power limit.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Weights are Xavier-normal from a seed;
-the repo ships no checkpoint. Imports nothing of JAX.
+``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
+ships no checkpoint. Training writes its checkpoints under ``build/``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 SEED = 0
 B, SECONDS, FS = 32, 5.1, 16000
+M1_TRAIN_UTTS, M1_VALID_UTTS, M1_EPOCHS = 128, 16, 3
+VAD_TRAIN_UTTS, VAD_VALID_UTTS, VAD_EPOCHS, VAD_BATCH = 256, 32, 4, 16
 # H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -52,10 +76,12 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def synthetic_wavs(rng: np.random.Generator) -> list[np.ndarray]:
-    """Harmonic 'speech' with a drifting pitch plus babble-like noise."""
+def synthetic_parts(rng: np.random.Generator, count: int, gated: bool = False):
+    """(clean, noise) pairs: harmonic 'speech' with a drifting pitch, and
+    babble-like noise. ``gated`` switches the speech on and off in 0.2-0.8 s
+    segments, so that frames without speech exist."""
     out = []
-    for i in range(B):
+    for i in range(count):
         n = int(SECONDS * FS) - int(rng.integers(0, 3000))
         t = np.arange(n) / FS
         f0 = 110 + 60 * rng.random() + 20 * np.sin(2 * np.pi * 0.5 * t)
@@ -63,8 +89,24 @@ def synthetic_wavs(rng: np.random.Generator) -> list[np.ndarray]:
         env = 0.5 + 0.5 * np.sin(2 * np.pi * (1.5 + rng.random()) * t) ** 2
         speech = env * sum(np.sin(k * phase) / k for k in range(1, 12))
         noise = rng.standard_normal(n) * (0.1 + 0.2 * rng.random())
-        out.append((0.2 * speech + noise).astype(np.float32))
+        if gated:
+            edges = np.cumsum(rng.uniform(0.2, 0.8, 16) * FS).astype(int)
+            speech = speech * (np.searchsorted(edges, np.arange(n), side="right") % 2)
+        out.append((0.2 * speech, noise))
     return out
+
+
+def synthetic_wavs(rng: np.random.Generator) -> list[np.ndarray]:
+    """Mixtures of :func:`synthetic_parts`."""
+    return [(s + n).astype(np.float32) for s, n in synthetic_parts(rng, B)]
+
+
+def vad_labels(clean: np.ndarray, n_frames: int, hop: int, half: int) -> np.ndarray:
+    """Per-frame labels from the clean part's energy around each frame's
+    centre (centred STFT framing): 1 where it exceeds 1e-3 of the peak."""
+    e = np.convolve(clean.astype(np.float64) ** 2, np.ones(2 * half), mode="same")
+    centres = np.minimum(np.arange(n_frames) * hop, len(clean) - 1)
+    return (e[centres] > 1e-3 * e.max()).astype(np.float32)
 
 
 def chain_work(rows, f, l, h1, h2, n_burn, n_samples, wf):
@@ -81,9 +123,306 @@ def chain_work(rows, f, l, h1, h2, n_burn, n_samples, wf):
     return 2 * macs + elem, 4 * (reads + writes)
 
 
+def stft_power_work(rows, t_total, nfft, n_bins, log_out):
+    """(flops, bytes) the least a power spectrogram needs: per frame the
+    window and one nfft-point FFT (5 nfft log2 nfft operations, the
+    customary radix-2 count), then re^2 + im^2 (+ log) per bin; each
+    waveform sample read once, each output written once."""
+    flops = rows * (nfft + 5 * nfft * math.log2(nfft)) + rows * n_bins * (4 if log_out else 3)
+    return flops, 4 * (t_total + rows * n_bins)
+
+
 def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
+    """Phases 5-8 on the card; returns the stft_power entries of the kernels
+    line, one per path. ``mix_wavs`` is the phase-3 batch, ``work`` a
+    scratch directory."""
+    import itertools
+
+    import torch
+
+    from dvae_tpu_torch.data.builders import build_frames, padded_batch
+    from dvae_tpu_torch.data.datasets import FrameDataset
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import VAE, LSTMVad
+    from dvae_tpu_torch.ops import log_power_spectrogram, power_spectrogram, stft_power
+    from dvae_tpu_torch.ops.stft import (
+        StftConfig,
+        get_window,
+        n_stft_frames_clamped,
+        pad_signal,
+        padded_length,
+    )
+    from dvae_tpu_torch.train import checkpoint as ckpt
+    from dvae_tpu_torch.train import loop
+    from dvae_tpu_torch.train.loop import LoopConfig, fit_vae
+    from dvae_tpu_torch.train.sequence import (
+        batch_utterances,
+        fit_sequence,
+        make_lstm_vad_eval,
+        make_lstm_vad_step,
+        pad_utterances,
+    )
+    from dvae_tpu_torch.train.steps import adam, make_train_step
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def tone_batch(batch, length):
+        t = torch.arange(length, device=dev) / FS
+        return (0.3 * torch.sin(2 * torch.pi * 220 * t)
+                + 0.2 * torch.randn((batch, length), generator=gen, device=dev))
+
+    def limit_ratio(got, p):
+        """Largest |got - p| over the power limit, rtol 1e-4 above a floor
+        of 1e-6 of the batch's peak power (<= 1 passes)."""
+        return float(((got - p).abs() / (1e-4 * p.abs() + 1e-6 * p.amax())).max())
+
+    def log_err(got, p):
+        """Largest |got - log(p + 1e-12)| on the bins above 1e-6 of the
+        batch's peak power (limit 1e-3)."""
+        big = p > 1e-6 * p.amax()
+        return float((got[big] - torch.log(p[big] + 1e-12)).abs().max())
+
+    # ---- 5. the STFT power kernel against its plain version
+    quirk = next(n for n in range(256 * 40, 256 * 120, 256)
+                 if padded_length(n, StftConfig()) != n)
+    worst_pow, worst_log, n_cases = 0.0, 0.0, 0
+    for center in (False, True):
+        cfg = StftConfig(center=center)
+        cases = [(1, 20480), (3, 12345), (2, quirk), (4, int(SECONDS * FS))]
+        for batch, length in cases + ([(2, 300)] if center else []):
+            x = tone_batch(batch, length)
+            for log_out in (False, True):
+                before = stft_power.launches
+                got = (log_power_spectrogram if log_out else power_spectrogram)(x, cfg)
+                sync()
+                check(stft_power.launches == before + 1, "stft_power launch count")
+                p = stft_power.stft_power_reference(x, cfg)
+                sync()
+                check(stft_power.launches == before + 1, "the plain run launched the kernel")
+                check(got.shape == p.shape, f"stft_power shape {tuple(got.shape)}")
+                if log_out:
+                    err = log_err(got, p)
+                    check(err < 1e-3, f"log epilogue center={center} {batch}x{length}: {err}")
+                    worst_log = max(worst_log, err)
+                else:
+                    ratio = limit_ratio(got, p)
+                    check(ratio <= 1.0, f"power epilogue center={center} {batch}x{length}")
+                    worst_pow = max(worst_pow, ratio)
+                n_cases += 1
+    log(f"phase 5: stft_power kernel vs plain, {n_cases} cases: power error at "
+        f"{worst_pow:.3f} of its limit (rtol 1e-4, floor 1e-6 x peak); log max abs "
+        f"err {worst_log:.3e} on bins above 1e-6 x peak (limit 1e-3); the plain runs "
+        f"launched nothing")
+
+    # ---- 6. M1 training at full width, then serving the trained prior
+    rng = np.random.default_rng(SEED + 1)
+    clean_train = [c.astype(np.float32) for c, _ in synthetic_parts(rng, M1_TRAIN_UTTS)]
+    clean_valid = [c.astype(np.float32) for c, _ in synthetic_parts(rng, M1_VALID_UTTS)]
+    stft_power.launches = 0
+    t0 = time.perf_counter()
+    tr = build_frames(clean_train)
+    va = build_frames(clean_valid)
+    t_build = time.perf_counter() - t0
+    m1_launches = stft_power.launches
+    check(m1_launches == 2, f"{m1_launches} stft_power launches for 2 frame sets")
+    check(np.isfinite(tr.x).all() and np.isfinite(va.x).all() and (tr.std > 0).all(),
+          "frame set finite")
+    log(f"phase 6: frame sets {tr.x.shape} train / {va.x.shape} valid from "
+        f"{M1_TRAIN_UTTS} + {M1_VALID_UTTS} utterances in {t_build:.3f} s, "
+        f"{m1_launches} stft_power launches (one per frame set)")
+    train_ds = FrameDataset.from_arrays(tr.x, None, tr.mean, tr.std)
+    valid_ds = FrameDataset.from_arrays(va.x)
+
+    for std_norm in (False, True):
+        model_dir = os.path.join(work, "m1_norm" if std_norm else "m1")
+        cfg = LoopConfig(batch_size=128, learning_rate=1e-4, end_epoch=M1_EPOCHS + 1,
+                         seed=SEED, std_norm=std_norm)
+        t0 = time.perf_counter()
+        _, hist = fit_vae(VAE(513, 16, (128, 128)), train_ds, valid_ds, model_dir, "M1", cfg=cfg)
+        wall = time.perf_counter() - t0
+        elbos = [(h["train"]["elbo"], h["valid"]["elbo"]) for h in hist]
+        check(all(np.isfinite(e).all() for e in elbos), f"M1 ELBO not finite: {elbos}")
+        check(elbos[-1][1] < elbos[0][1], f"M1 validation ELBO did not fall: {elbos}")
+        pts = ckpt.checkpoints(model_dir, "M1_epoch_*.pt")
+        check(len(pts) == M1_EPOCHS, f"{len(pts)} .pt files for {M1_EPOCHS} epochs")
+        steps = M1_EPOCHS * -(-len(train_ds) // 128)
+        log(f"phase 6: fit_vae std_norm={std_norm}: {steps} steps in {wall:.3f} s; "
+            f"(train, valid) ELBO per epoch {[(round(a, 3), round(b, 3)) for a, b in elbos]}; "
+            f"{len(pts)} .pt files")
+        best = ckpt.best_checkpoint(model_dir, "M1")
+        enh = Enhancer(VAE(513, 16, (128, 128)),
+                       EnhancerConfig(norm=(tr.mean, tr.std) if std_norm else None))
+        enh.reload(torch.load(best, map_location="cpu", weights_only=True))
+        mh_chain.launches = 0
+        out = enh.enhance_batch(mix_wavs, seed=SEED)
+        want = enh.cfg.mcem.niter + 1
+        check(mh_chain.launches == want, f"{mh_chain.launches} mh_chain launches, expected {want}")
+        check(len(out) == len(mix_wavs)
+              and all(np.isfinite(a).all() and np.isfinite(b).all() for a, b in out),
+              "trained-model enhancement outputs finite")
+        log(f"phase 6: {best.name} (std_norm={std_norm}) enhanced the phase-3 batch "
+            f"through {mh_chain.launches} mh_chain launches; outputs finite, cost "
+            f"{enh.last_cost[0]:.5f} -> {enh.last_cost[-1]:.5f}")
+
+    # ---- 7. audio-VAD training at full width on in-memory utterances
+    stft_cfg = StftConfig(center=True)
+    rng = np.random.default_rng(SEED + 2)
+
+    def vad_utterances(count):
+        out = []
+        for clean, noise in synthetic_parts(rng, count, gated=True):
+            mix = clean + noise
+            mix = (mix / np.abs(mix).max()).astype(np.float32)  # peak-normalized, as loaded
+            frames = n_stft_frames_clamped(len(mix), stft_cfg)
+            out.append((mix, vad_labels(clean, frames, stft_cfg.hop, stft_cfg.nfft // 2)))
+        return out
+
+    vtrain, vvalid = vad_utterances(VAD_TRAIN_UTTS), vad_utterances(VAD_VALID_UTTS)
+
+    def batcher(ds, idx):
+        return batch_utterances(ds, idx, stft_cfg)
+
+    # the train statistics of the noisy log power over valid frames
+    # (the reference's std_norm default for this net)
+    s1 = s2 = cnt = 0.0
+    for s0 in range(0, len(vtrain), VAD_BATCH):
+        x, _, m = batcher(vtrain, range(s0, min(s0 + VAD_BATCH, len(vtrain))))
+        w = m[..., None].double()
+        s1, s2, cnt = s1 + (x * w).sum((0, 1)), s2 + (x.double() ** 2 * w).sum((0, 1)), cnt + w.sum()
+    mean = s1 / cnt
+    norm = (mean.float().cpu().numpy()[:, None],
+            torch.sqrt(s2 / cnt - mean ** 2).float().cpu().numpy()[:, None])
+    speech = float(np.mean(np.concatenate([y for _, y in vtrain])))
+
+    vad = LSTMVad(513, 1024, 2, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    opt = adam(vad.parameters(), 1e-4)
+    stft_power.launches = 0
+    t0 = time.perf_counter()
+    hist = fit_sequence(vad, opt, make_lstm_vad_step(vad, opt, norm=norm),
+                        make_lstm_vad_eval(vad, norm=norm), vtrain, vvalid, batcher,
+                        os.path.join(work, "vad"), prefix="VAD", seed=SEED,
+                        end_epoch=VAD_EPOCHS + 1, batch_size=VAD_BATCH, log=log)
+    sync()
+    wall = time.perf_counter() - t0
+    vad_launches = stft_power.launches
+    per_epoch = -(-VAD_TRAIN_UTTS // VAD_BATCH) + -(-VAD_VALID_UTTS // VAD_BATCH)
+    check(vad_launches == VAD_EPOCHS * per_epoch,
+          f"{vad_launches} stft_power launches, expected one per batch ({VAD_EPOCHS * per_epoch})")
+    bces = [(h["train"]["bce"], h["valid"]["bce"]) for h in hist]
+    check(all(np.isfinite(b).all() for b in bces), f"VAD BCE not finite: {bces}")
+    check(bces[-1][0] < bces[0][0], f"VAD train BCE did not fall: {bces}")
+    log(f"phase 7: fit_sequence LSTMVad(513, 1024, 2) on {VAD_TRAIN_UTTS} utterances "
+        f"({100 * speech:.1f}% speech frames), {VAD_EPOCHS} epochs in {wall:.3f} s, "
+        f"{vad_launches} stft_power launches (one per batch); (train, valid) BCE per "
+        f"epoch {[(round(a, 4), round(b, 4)) for a, b in bces]}; valid F1 "
+        f"{hist[-1]['valid']['f1']:.4f}")
+
+    # ---- 8. the kernel at each path's own launch, then times
+    framing = StftConfig(center=False, pad_at_end=False)  # frames of a padded waveform
+
+    def time_stft(xp, log_out, label, launches):
+        """Kernel against its plain version at one path's launch (the padded
+        waveform ``xp`` the wrapper hands the kernel), then times."""
+        nfft, hop, n_bins = framing.nfft, framing.hop, framing.n_bins
+        rows = xp.shape[0] * (1 + (xp.shape[1] - nfft) // hop)
+        eps = 1e-12 if log_out else None
+        win = torch.from_numpy(get_window(framing.window, nfft).astype(np.float32)).to(dev)
+
+        def library():
+            p = torch.stft(xp, nfft, hop, window=win, center=False, return_complex=True)
+            p = p.abs().square()
+            return torch.log(p + 1e-12) if log_out else p
+
+        got = stft_power._launch(xp, framing, eps)
+        power = stft_power.stft_power_reference(xp, framing)
+        plain = torch.log(power + 1e-12) if log_out else power
+        lib = library().transpose(-1, -2)
+        sync()
+        err = float((got - plain).abs().max())
+        if log_out:  # on the bins above 1e-6 of the peak power, as in phase 5
+            within, lib_within = log_err(got, power), log_err(lib, power)
+            check(within < 1e-3, f"log epilogue at the {label}: {within}")
+        else:
+            within, lib_within = limit_ratio(got, power), limit_ratio(lib, power)
+            check(within <= 1.0, f"power epilogue at the {label}: {within}")
+        k_ms = cuda_ms(lambda: stft_power._launch(xp, framing, eps), reps=20, warm=2)
+        p_ms = cuda_ms(lambda: stft_power.stft_power_reference(xp, framing, eps), reps=10, warm=2)
+        l_ms = cuda_ms(library, reps=20, warm=2)
+        flops, nbytes = stft_power_work(rows, xp.numel(), nfft, n_bins, log_out)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        dft_flops = 2 * rows * nfft * 2 * n_bins  # the kernel's own DFT-by-product work
+        limit = ("max abs err {:.3e} on bins above 1e-6 x peak (limit 1e-3)" if log_out
+                 else "at {:.3f} of the power limit")
+        log(f"phase 8: stft_power at the {label} ({tuple(xp.shape)} padded, {rows} frames, "
+            f"{'log' if log_out else 'power'}, {launches} launches on the path): kernel vs "
+            f"plain {limit.format(within)}, max abs err {err:.3e}; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, torch.stft {l_ms:.4f} ms (kernel / torch.stft = "
+            f"{k_ms / l_ms:.2f}; torch.stft vs plain {limit.format(lib_within)}); bound "
+            f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP as an FFT, "
+            f"{nbytes / 1e6:.1f} MB), kernel at {100 * b_ms / k_ms:.2f}% of it; the "
+            f"kernel's DFT products, {dft_flops / 1e9:.2f} GFLOP, ran at "
+            f"{dft_flops / k_ms / 1e9:.2f} TFLOP/s {tag}")
+        return {"name": f"stft_power ({label})", "route": "cuda",
+                "source": "dvae_tpu_torch/csrc/stft_power.cu",
+                "replaces": "dvae_tpu/ops/pallas_stft.py:80", "launches": launches,
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": l_ms}
+
+    entries = [
+        time_stft(padded_batch(clean_train)[0].to(dev), False, "train frame set",
+                  m1_launches),
+        time_stft(pad_signal(torch.from_numpy(pad_utterances(
+            vtrain, range(VAD_BATCH), stft_cfg)[0]).to(dev), stft_cfg).contiguous(),
+                  True, "VAD batch", vad_launches)]
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        build_frames(clean_train[:B])
+        walls.append(time.perf_counter() - t0)
+    log(f"phase 8: frame-set build of {B} utterances (~{SECONDS} s each, one launch, "
+        f"copy back included): {', '.join(f'{w:.4f}' for w in walls)} s {tag}")
+
+    # fit_vae's own per-batch path: its batch source, then the train step
+    model = VAE(513, 16, (128, 128)).to(dev)
+    step = make_train_step(model, adam(model.parameters(), 1e-4))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    order = np.random.default_rng(SEED)
+    for name, rows in (("host-fed", loop._host_rows(train_ds, dev)),
+                       ("device_data", loop._device_rows(train_ds, dev))):
+        def run(n):
+            count = 0
+            for x in itertools.islice(rows(128, order, True), n):
+                step(x, generator=g)
+                count += 1
+            return count
+
+        run(20)
+        sync()
+        t0 = time.perf_counter()
+        n_steps = run(300)
+        sync()
+        ms = (time.perf_counter() - t0) / n_steps * 1e3
+        log(f"phase 8: M1 train step batch 128 {name}: {ms:.4f} ms, {1e3 / ms:.1f} steps/s, "
+            f"{128e3 / ms:.0f} frames/s {tag}")
+
+    xv = torch.randn((VAD_BATCH, 320, 513), generator=gen, device=dev)
+    yv = (torch.rand((VAD_BATCH, 320), generator=gen, device=dev) > 0.5).float()
+    mv = torch.ones((VAD_BATCH, 320), device=dev)
+    vstep = make_lstm_vad_step(vad, adam(vad.parameters(), 1e-4))
+    l_ms = cuda_ms(lambda: vstep(xv, yv, mv), reps=10, warm=2)
+    log(f"phase 8: LSTMVad(513, 1024, 2) train step at ({VAD_BATCH}, 320, 513): "
+        f"{l_ms:.4f} ms {tag}")
+
+    return entries
 
 
 def main() -> int:
@@ -105,6 +444,7 @@ def main() -> int:
     from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
     from dvae_tpu_torch.models import VAE
     from dvae_tpu_torch.models.blocks import init_xavier_
+    from dvae_tpu_torch.ops import stft_power
     from dvae_tpu_torch.ops.stft import stft_realimag
 
     dev = torch.device("cuda")
@@ -117,8 +457,11 @@ def main() -> int:
     log(card)
     tag = f"[{card}]"
     t0 = time.perf_counter()
-    mh_chain.build_library()
-    log(f"phase 1: mh_chain kernel built in {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each, together
+        for built in [pool.submit(mh_chain.build_library), pool.submit(stft_power.build_library)]:
+            built.result()
+    log(f"phase 1: mh_chain and stft_power kernels built in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 2. kernel vs plain on the card, full width
     f, l = 513, 16
@@ -330,12 +673,17 @@ def main() -> int:
         f"{wall - chain_s - mc.niter * m_ms / 1e3:.4f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
 
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+        stft_entries = training_phases(work, wavs, cuda_ms, tag)
+
     k_ms, p_ms, b_ms, b_by = times[False]
     log(json.dumps({"kernels": [{
         "name": "mh_chain", "route": "cuda", "source": "dvae_tpu_torch/csrc/mh_chain.cu",
         "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": launches,
         "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}]}))
+        "bound_by": b_by, "library_ms": None}, *stft_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -21,31 +21,19 @@ The chain's randomness is an input, ``noise`` of shape
 from __future__ import annotations
 
 import ctypes
-import hashlib
+import functools
 import math
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 
+from dvae_tpu_torch.build import load_library
 from dvae_tpu_torch.enhance.nmf import VX_FLOOR
 
-_SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "mh_chain.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC"]
 # dynamic shared memory one H100 block may use
 _MAX_SMEM = 232448
 
 # kernel launches since the last reset (only the launch in run_mh_chain counts)
 launches = 0
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def extract_decoder_mlp(model, z_dim: int):
@@ -168,48 +156,28 @@ def mh_chain_reference(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int
     return z, torch.stack(samples)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
-    return path
-
-
+@functools.cache
 def build_library() -> ctypes.CDLL:
     """Compile ``csrc/mh_chain.cu`` for sm_90a into ``build/`` (once per
-    source version) and load it."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = _BUILD_DIR / f"libmh_chain_{tag}.so"
-        if not so.exists():
-            fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
-            os.close(fd)
-            try:
-                proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                                      capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-        lib = ctypes.CDLL(str(so))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mh_chain_launch.argtypes = [p] * 15 + [i] * 9 + [ctypes.c_float, p]
-        lib.mh_chain_launch.restype = i
-        lib.mh_chain_smem_bytes.argtypes = [i] * 5
-        lib.mh_chain_smem_bytes.restype = ctypes.c_longlong
-        _lib = lib
-        return lib
+    source version), load it and declare its C interface (once per
+    process)."""
+    lib = load_library("mh_chain.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mh_chain_launch.argtypes = [p] * 15 + [i] * 9 + [ctypes.c_float, p]
+    lib.mh_chain_launch.restype = i
+    lib.mh_chain_smem_bytes.argtypes = [i] * 5
+    lib.mh_chain_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def _check_smem(f: int, l: int, h1: int, h2: int, wf_mode: bool) -> None:
+    """Raise unless one block's shared memory holds these widths (checked
+    once each)."""
+    smem = build_library().mh_chain_smem_bytes(f, l, h1, h2, int(wf_mode))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"widths need {smem} B of shared memory per block "
+                         f"(> {_MAX_SMEM}): F={f} L={l} H=({h1}, {h2})")
 
 
 def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode):
@@ -222,11 +190,8 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode):
     if h1 % 2 or h2 % 2 or w1z.data_ptr() % 8 or w2.data_ptr() % 8:
         raise ValueError(f"the kernel needs even hidden widths and 8-byte aligned "
                          f"w1z/w2, got H=({h1}, {h2})")
+    _check_smem(f, l, h1, h2, wf_mode)
     lib = build_library()
-    smem = lib.mh_chain_smem_bytes(f, l, h1, h2, int(wf_mode))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} B of shared memory per block "
-                         f"(> {_MAX_SMEM}): F={f} L={l} H=({h1}, {h2})")
     z_out = torch.empty((rows, l), device=x2.device)
     if wf_mode:
         outs = (torch.empty((rows, f), device=x2.device),

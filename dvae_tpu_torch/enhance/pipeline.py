@@ -53,8 +53,10 @@ def _quantize_pcm16(x: torch.Tensor):
 @dataclasses.dataclass(frozen=True)
 class EnhancerConfig:
     """Same fields as the JAX package's config. This port serves
-    ``y_mode="none"``, ``engine="mcem"``, ``ablation="none"``, ``norm=None``
-    and ``aot_dir=None``; other values raise NotImplementedError."""
+    ``y_mode="none"``, ``engine="mcem"``, ``ablation="none"`` and
+    ``aot_dir=None``; other values raise NotImplementedError. ``norm`` is
+    the (mean, std) train statistics of a model trained with std_norm: the
+    encoder then sees (|X|^2 - mean) / (std + norm_eps)."""
 
     stft: StftConfig = StftConfig()
     mcem: McemConfig = McemConfig()
@@ -89,7 +91,7 @@ class Enhancer:
             raise ValueError(f"bad engine {cfg.engine!r}")
         for name, value, served, item in (
                 ("y_mode", cfg.y_mode, "none", 9), ("engine", cfg.engine, "mcem", 10),
-                ("ablation", cfg.ablation, "none", 10), ("norm", cfg.norm, None, 8),
+                ("ablation", cfg.ablation, "none", 10),
                 ("aot_dir", cfg.aot_dir, None, 11), ("mesh", mesh, None, 14)):
             if value != served:
                 raise NotImplementedError(f"{name}={value!r}: " + _LATER.format(item))
@@ -97,6 +99,9 @@ class Enhancer:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.mats = extract_decoder_mlp(self.model, self.model.z_dim)
+        self._norm = None if cfg.norm is None else tuple(
+            torch.as_tensor(np.asarray(a, np.float32).reshape(-1), device=self.device)
+            for a in cfg.norm)
         if self.mats is None:
             raise NotImplementedError(
                 "the MCEM chain needs a two-hidden-layer decoder; "
@@ -124,7 +129,11 @@ class Enhancer:
         re, im = stft_realimag(x, cfg.stft)
         re, im = re[:, :n_frames], im[:, :n_frames]  # (B, N, F)
         x2 = re * re + im * im
-        _, z0, _ = self.model.encode(x2, sample=False)
+        enc_in = x2
+        if self._norm is not None:  # the encoder input only; MCEM sees raw x2
+            mean, std = self._norm
+            enc_in = (x2 - mean) / (std + cfg.norm_eps)
+        _, z0, _ = self.model.encode(enc_in, sample=False)
         res = run_mcem(self.mats, x2, z0, mask, seed, cfg.mcem)
         s = istft_realimag_masked(res.wfs * re, res.wfs * im, mask, cfg.stft)
         n = None

@@ -39,18 +39,22 @@ class MLP(nn.ModuleList):
 
 
 class GaussianSample(nn.Module):
-    """mu / log-variance heads + reparametrized sample."""
+    """mu / log-variance heads + reparametrized sample. The standard normal
+    ``eps`` is drawn from ``generator`` unless it is given."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.mu = nn.Linear(in_features, out_features)
         self.log_var = nn.Linear(in_features, out_features)
 
-    def forward(self, h, sample: bool = True, generator: torch.Generator | None = None):
+    def forward(self, h, sample: bool = True, generator: torch.Generator | None = None,
+                eps: torch.Tensor | None = None):
         mu = self.mu(h)
         log_var = self.log_var(h)
         if sample:
-            eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+            if eps is None:
+                eps = torch.randn(mu.shape, generator=generator, device=mu.device,
+                                  dtype=mu.dtype)
             z = mu + torch.exp(0.5 * log_var) * eps
         else:
             z = mu
@@ -65,8 +69,9 @@ class Encoder(nn.Module):
         self.hidden = MLP(x_dim, hidden)
         self.sample = GaussianSample(hidden[-1] if hidden else x_dim, z_dim)
 
-    def forward(self, x, sample: bool = True, generator: torch.Generator | None = None):
-        return self.sample(self.hidden(x), sample=sample, generator=generator)
+    def forward(self, x, sample: bool = True, generator: torch.Generator | None = None,
+                eps: torch.Tensor | None = None):
+        return self.sample(self.hidden(x), sample=sample, generator=generator, eps=eps)
 
 
 class Decoder(nn.Module):

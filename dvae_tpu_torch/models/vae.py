@@ -20,12 +20,14 @@ class VAE(nn.Module):
         self.decoder = Decoder(z_dim, tuple(reversed(self.h_dim)), x_dim)
         init_xavier_(self)
 
-    def forward(self, x, sample: bool = True, generator: torch.Generator | None = None):
-        z, mu, log_var = self.encoder(x, sample=sample, generator=generator)
+    def forward(self, x, sample: bool = True, generator: torch.Generator | None = None,
+                eps: torch.Tensor | None = None):
+        z, mu, log_var = self.encoder(x, sample=sample, generator=generator, eps=eps)
         return self.decoder(z), mu, log_var
 
-    def encode(self, x, sample: bool = True, generator: torch.Generator | None = None):
-        return self.encoder(x, sample=sample, generator=generator)
+    def encode(self, x, sample: bool = True, generator: torch.Generator | None = None,
+               eps: torch.Tensor | None = None):
+        return self.encoder(x, sample=sample, generator=generator, eps=eps)
 
     def decode(self, z):
         return self.decoder(z)

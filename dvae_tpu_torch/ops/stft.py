@@ -151,8 +151,31 @@ def frame_signal(x: torch.Tensor, nfft: int, hop: int) -> torch.Tensor:
     return x.unfold(-1, nfft, hop)
 
 
-def stft_realimag(x: torch.Tensor, cfg: StftConfig = StftConfig()):
-    """STFT of a (..., T) float signal -> (re, im), each (..., frames, bins)."""
+def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``pad`` samples of reflection on both ends of the last axis, as
+    ``jnp.pad`` / ``np.pad`` with ``mode="reflect"`` give them: a signal of
+    ``pad`` samples or fewer is reflected again and again (torch's own
+    reflect pad refuses it)."""
+    n = x.shape[-1]
+    if n == 0:
+        raise ValueError("cannot reflect-pad an empty signal")
+    offset = 1 if n > 1 else 0
+    for before in (True, False):
+        left = pad
+        while left > 0:
+            cur = min(left, n - offset)
+            left -= cur
+            t = x.shape[-1]
+            piece = x[..., offset:offset + cur] if before else x[..., t - cur - offset:t - offset]
+            piece = piece.flip(-1)
+            x = torch.cat([piece, x] if before else [x, piece], dim=-1)
+    return x
+
+
+def pad_signal(x: torch.Tensor, cfg: StftConfig = StftConfig()) -> torch.Tensor:
+    """(..., T) float signal -> the float32 (..., T_pad) signal that is cut
+    into frames: the end-pad quirk of :func:`padded_length`, then, when
+    ``cfg.center``, ``nfft // 2`` samples of ``cfg.pad_mode`` on each end."""
     n_samples = x.shape[-1]
     x = x.to(torch.float32)
     t = padded_length(n_samples, cfg)
@@ -160,9 +183,17 @@ def stft_realimag(x: torch.Tensor, cfg: StftConfig = StftConfig()):
         x = nnf.pad(x, (0, t - n_samples))
     if cfg.center:
         half = cfg.nfft // 2
+        if cfg.pad_mode == "reflect":
+            return _reflect_pad(x, half)
         lead = x.shape[:-1]
         x = nnf.pad(x.reshape(-1, 1, x.shape[-1]), (half, half), mode=cfg.pad_mode)
         x = x.reshape(*lead, -1)
+    return x
+
+
+def stft_realimag(x: torch.Tensor, cfg: StftConfig = StftConfig()):
+    """STFT of a (..., T) float signal -> (re, im), each (..., frames, bins)."""
+    x = pad_signal(x, cfg)
     frames = frame_signal(x, cfg.nfft, cfg.hop)
     cos, msin = _dft_matrices(cfg.nfft, cfg.window, x.device)
     return torch.matmul(frames, cos), torch.matmul(frames, msin)
@@ -172,6 +203,12 @@ def power_spectrogram(x: torch.Tensor, cfg: StftConfig = StftConfig()) -> torch.
     """|STFT|^2 of a (..., T) signal -> (..., frames, bins)."""
     re, im = stft_realimag(x, cfg)
     return re * re + im * im
+
+
+def log_power_spectrogram(x: torch.Tensor, cfg: StftConfig = StftConfig(),
+                          eps: float = 1e-12) -> torch.Tensor:
+    """log(|STFT|^2 + eps): the noisy-speech input of the VAD trainers."""
+    return torch.log(power_spectrogram(x, cfg) + eps)
 
 
 def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:

@@ -1,20 +1,25 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Imports nothing of JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
-Every test skips without a CUDA device (the kernel has no CPU mode).
-Tolerances: a frozen chain (var_rw = 0) is the same decoder arithmetic in
-another summation order, rtol 1e-5. A live chain fed the same noise may
-flip an acceptance where ``log u`` lies within rounding of ``E - E'``, so
-at least 99% of rows must end at the same z, and those rows' samples agree
-to rtol 1e-4.
+Every test marked ``cuda`` skips without a CUDA device (the kernels have
+no CPU mode). Tolerances: a frozen chain (var_rw = 0) is the same decoder
+arithmetic in another summation order, rtol 1e-5. A live chain fed the
+same noise may flip an acceptance where ``log u`` lies within rounding of
+``E - E'``, so at least 99% of rows must end at the same z, and those rows'
+samples agree to rtol 1e-4. The STFT power kernel sums each 1024-term DFT
+product in another order than the plain matmuls: power agrees to rtol 1e-4
+above a floor of 1e-6 of the batch's peak power, log power to 1e-3
+absolute on the bins above that floor.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from dvae_tpu_torch.data.builders import build_frames
 from dvae_tpu_torch.enhance import mh_chain
 from dvae_tpu_torch.enhance.mcem import McemConfig, run_mcem
 from dvae_tpu_torch.enhance.mh_chain import (
@@ -24,6 +29,8 @@ from dvae_tpu_torch.enhance.mh_chain import (
     run_mh_chain,
 )
 from dvae_tpu_torch.models import VAE
+from dvae_tpu_torch.ops import log_power_spectrogram, power_spectrogram, stft_power
+from dvae_tpu_torch.ops.stft import StftConfig, padded_length
 
 F, L = 513, 16
 
@@ -111,3 +118,65 @@ def test_cuda_run_mcem_frozen_matches_plain(cuda, monkeypatch):
     assert mh_chain.launches == before + cfg.niter + 1
     for a, b_ in zip(rk, rp):
         torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-5)
+
+
+def _quirk_length():
+    """A multiple of hop at which the end-pad quirk still adds a hop."""
+    return next(n for n in range(256 * 40, 256 * 120, 256)
+                if padded_length(n, StftConfig()) != n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_out", [False, True], ids=["power", "log"])
+@pytest.mark.parametrize("center", [False, True], ids=["nocenter", "center"])
+def test_cuda_stft_power_matches_plain(cuda, center, log_out):
+    cfg = StftConfig(center=center)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    # frame counts that are not a multiple of the 64-frame tile, the end-pad
+    # quirk, a batch, and (centered) a signal shorter than nfft / 2
+    cases = [(1, 20480), (3, 12345), (2, _quirk_length()), (1, 81600)]
+    if center:
+        cases.append((2, 300))
+    for batch, length in cases:
+        t = torch.arange(length, device=cuda) / 16000.0
+        x = 0.3 * torch.sin(2 * torch.pi * 220 * t) + 0.2 * torch.randn(
+            (batch, length), generator=gen, device=cuda)
+        before = stft_power.launches
+        got = log_power_spectrogram(x, cfg) if log_out else power_spectrogram(x, cfg)
+        torch.cuda.synchronize()
+        assert stft_power.launches == before + 1
+        p = stft_power.stft_power_reference(x, cfg)
+        assert stft_power.launches == before + 1  # the plain version launches nothing
+        assert got.shape == p.shape
+        floor = 1e-6 * p.amax()
+        if log_out:
+            big = p > floor
+            assert (got[big] - torch.log(p[big] + 1e-12)).abs().max() < 1e-3
+        else:
+            torch.testing.assert_close(got, p, rtol=1e-4, atol=float(floor))
+
+
+def test_stft_power_dispatch_raises_off_cpu_and_cuda():
+    x = torch.zeros((2, 4096), device="meta")
+    before = stft_power.launches
+    for fn in (power_spectrogram, log_power_spectrogram):
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            fn(x, StftConfig())
+    assert stft_power.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_build_frames_one_launch_matches_cpu(cuda):
+    """The frame-set builder makes one kernel launch for all utterances and
+    gives the plain version's frames and statistics."""
+    rng = np.random.default_rng(9)
+    wavs = [rng.standard_normal(n) for n in (_quirk_length(), 16000, 81600, 11111)]
+    before = stft_power.launches
+    got = build_frames(wavs, device=cuda)
+    assert stft_power.launches == before + 1
+    want = build_frames(wavs, device="cpu")
+    assert got.counts == want.counts
+    torch.testing.assert_close(torch.from_numpy(got.x), torch.from_numpy(want.x),
+                               rtol=1e-4, atol=float(1e-6 * want.x.max()))
+    torch.testing.assert_close(torch.from_numpy(got.mean), torch.from_numpy(want.mean),
+                               rtol=1e-4, atol=0.0)

@@ -23,6 +23,7 @@ from dvae_tpu_torch.enhance.mcem import McemConfig, fold_seed, make_generators, 
 from dvae_tpu_torch.enhance.mh_chain import extract_decoder_mlp
 from dvae_tpu_torch.models import VAE
 from dvae_tpu_torch.models.convert import state_dict_from_jax
+from _torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 B, N, F, L, K = 2, 16, 65, 8, 4
 BUDGET = dict(nsamples_e_step=3, burnin_e_step=2, nsamples_wf=4, burnin_wf=2, nmf_rank=K)

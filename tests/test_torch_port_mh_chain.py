@@ -28,6 +28,7 @@ from dvae_tpu_torch.enhance.mh_chain import (
 )
 from dvae_tpu_torch.models import VAE
 from dvae_tpu_torch.models.convert import state_dict_from_jax
+from _torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 B, N, F, L = 2, 24, 513, 16
 ROWS = B * N

@@ -16,6 +16,7 @@ from dvae_tpu.train.torch_import import export_torch_state_dict
 from dvae_tpu_torch.models import VAE
 from dvae_tpu_torch.models.blocks import init_xavier_
 from dvae_tpu_torch.models.convert import state_dict_from_jax
+from _torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", params=[(513, 16, (128, 128)), (513, 16, (64, 32))],

@@ -10,6 +10,7 @@ import torch
 
 from dvae_tpu.enhance import nmf as jnmf
 from dvae_tpu_torch.enhance import nmf as tnmf
+from _torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 R, B, N, F, K = 3, 2, 20, 65, 4
 

@@ -25,6 +25,7 @@ from dvae_tpu_torch.enhance.mcem import McemConfig
 from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
 from dvae_tpu_torch.models import VAE
 from dvae_tpu_torch.models.convert import state_dict_from_jax
+from _torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 BUDGET = dict(niter=3, nsamples_e_step=2, burnin_e_step=2, nsamples_wf=2, burnin_wf=2,
               var_rw=0.0)
@@ -123,10 +124,27 @@ def test_default_device_without_cuda_raises(models):
 
 @pytest.mark.parametrize("field,value", [
     ("y_mode", "enc_dec"), ("engine", "peem"), ("ablation", "clean_z"),
-    ("norm", (0.0, 1.0)), ("aot_dir", "/nonexistent")])
+    ("aot_dir", "/nonexistent")])
 def test_unserved_config_values_raise(models, field, value):
     with pytest.raises(NotImplementedError, match="later PR"):
         Enhancer(models[2], EnhancerConfig(**{field: value}), device="cpu")
+
+
+def test_enhancer_norm_matches_jax_frozen_chain(models, shared_nmf_init):
+    """EnhancerConfig.norm (a std_norm model's train statistics) normalizes
+    the encoder input only, as the JAX Enhancer does; same tolerance as the
+    float32 wire above."""
+    rng = np.random.default_rng(5)
+    mean = rng.uniform(0.0, 2.0, (513, 1)).astype(np.float32)
+    std = rng.uniform(0.5, 3.0, (513, 1)).astype(np.float32)
+    ws, jout, tout, _ = _enhance_both(models, "float32", norm=(mean, std))
+    _, _, plain, _ = _enhance_both(models, "float32")
+    for (js, jn), (ts, tn), (ps, _) in zip(jout, tout, plain):
+        peak = np.abs(js).max() + 1e-9
+        np.testing.assert_allclose(ts, js, atol=1e-4 * peak)
+        np.testing.assert_allclose(tn, jn, atol=1e-4 * peak)
+    # the statistics change the encoder's z0 and so the masks
+    assert any(np.abs(ts - ps).max() > 1e-3 * np.abs(ps).max() for (ts, _), (ps, _) in zip(tout, plain))
 
 
 def test_split_stream_and_reload(models):

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from dvae_tpu_torch.ops import stft as tstft
+from _torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 # dvae_tpu.ops re-exports a function named ``stft`` over its module
 jstft = importlib.import_module("dvae_tpu.ops.stft")
