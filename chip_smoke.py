@@ -20,8 +20,10 @@ Phases, in order; any failure exits non-zero:
    segment at main-path shape, the NMF M-step, and the whole
    ``enhance_batch``, each with the card's name and power limit;
 5. the STFT power kernel against its plain version on the card: power and
-   log epilogues, ``center`` off and on, frame counts off the tile, the
-   end-pad quirk and a short centered signal;
+   log epilogues, ``center`` off and on, frame counts off any block's
+   frames, the end-pad quirk, a short centered signal, a silent row (exactly
+   0, or log(eps) as the plain version gives it) beside a full-scale one, and
+   the fewest frames a signal gives;
 6. M1 training at full width (``VAE(513, 16, (128, 128))``, batch 128,
    Adam 1e-4): synthetic clean utterances become the frame set through the
    STFT power kernel (one launch per frame set), ``fit_vae`` runs a few
@@ -32,11 +34,13 @@ Phases, in order; any failure exits non-zero:
    on synthetic noisy utterances held in memory, their log power taken by
    the kernel's log epilogue (one launch per batch): finite BCE, falling;
 8. the STFT power kernel held against its plain version, and timed (CUDA
-   events, warm) beside the plain version, ``torch.stft`` and the bound, on
-   each path's own launch: phase 6's train frame set (power) and a phase-7
-   batch (log); then the M1 train step host-fed and on device-resident
-   data, the LSTM train step, and the frame-set build, each with the card's
-   name and power limit.
+   events, warm: through the wrapper, the call the path makes, with the
+   wrapper's host time per call; and its C launch alone, back to back)
+   against the plain version, ``torch.stft`` and the bound, on each path's
+   own launch: phase 6's train frame set (power) and a phase-7 batch
+   (log); then the M1 train step host-fed and on device-resident data, the
+   LSTM train step, and the frame-set build, each with the card's name and
+   power limit.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -190,6 +194,17 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
         big = p > 1e-6 * p.amax()
         return float((got[big] - torch.log(p[big] + 1e-12)).abs().max())
 
+    def host_call_ms(fn, reps=200):
+        """Host wall time per call of ``fn``, with no synchronize between calls."""
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        sync()
+        return ms
+
     # ---- 5. the STFT power kernel against its plain version
     quirk = next(n for n in range(256 * 40, 256 * 120, 256)
                  if padded_length(n, StftConfig()) != n)
@@ -197,8 +212,15 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
     for center in (False, True):
         cfg = StftConfig(center=center)
         cases = [(1, 20480), (3, 12345), (2, quirk), (4, int(SECONDS * FS))]
-        for batch, length in cases + ([(2, 300)] if center else []):
-            x = tone_batch(batch, length)
+        cases += [(2, 300)] if center else []
+        # the FFT's edges: a silent row beside a full-scale one, and the
+        # fewest frames a signal gives (one uncentred, two centred)
+        cases += [("edges", 20480), (1, 200 if center else 769)]
+        for batch, length in cases:
+            x = tone_batch(3 if batch == "edges" else batch, length)
+            if batch == "edges":
+                x[1] = 0.0
+                x[2] = torch.where(x[2] > 0, 1.0, -1.0)
             for log_out in (False, True):
                 before = stft_power.launches
                 got = (log_power_spectrogram if log_out else power_spectrogram)(x, cfg)
@@ -208,6 +230,13 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
                 sync()
                 check(stft_power.launches == before + 1, "the plain run launched the kernel")
                 check(got.shape == p.shape, f"stft_power shape {tuple(got.shape)}")
+                if batch == "edges":
+                    silent = torch.log(p[1] + 1e-12) if log_out else p[1]
+                    check(not p[1].any() and torch.equal(got[1], silent),
+                          f"silent row center={center} log={log_out}: not exactly "
+                          f"{'log(eps)' if log_out else '0'}")
+                if length == (200 if center else 769):
+                    check(got.shape[-2] == (2 if center else 1), "fewest frames")
                 if log_out:
                     err = log_err(got, p)
                     check(err < 1e-3, f"log epilogue center={center} {batch}x{length}: {err}")
@@ -219,8 +248,8 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
                 n_cases += 1
     log(f"phase 5: stft_power kernel vs plain, {n_cases} cases: power error at "
         f"{worst_pow:.3f} of its limit (rtol 1e-4, floor 1e-6 x peak); log max abs "
-        f"err {worst_log:.3e} on bins above 1e-6 x peak (limit 1e-3); the plain runs "
-        f"launched nothing")
+        f"err {worst_log:.3e} on bins above 1e-6 x peak (limit 1e-3); silent rows "
+        f"exactly 0 / log(eps) as in the plain version; the plain runs launched nothing")
 
     # ---- 6. M1 training at full width, then serving the trained prior
     rng = np.random.default_rng(SEED + 1)
@@ -353,28 +382,46 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
         else:
             within, lib_within = limit_ratio(got, power), limit_ratio(lib, power)
             check(within <= 1.0, f"power epilogue at the {label}: {within}")
-        k_ms = cuda_ms(lambda: stft_power._launch(xp, framing, eps), reps=20, warm=2)
+
+        def wrapper():
+            return stft_power._launch(xp, framing, eps)
+
+        # ms is the call the path makes, through the wrapper, as for mh_chain;
+        # device_ms is the kernel alone, its C launch back to back, without
+        # the wrapper's host time (more than a VAD batch's device time)
+        win_t, tw, tw_split = stft_power._fft_tables(nfft, framing.window, dev)
+        out = torch.empty_like(got)
+        raw = (xp.data_ptr(), win_t.data_ptr(), tw.data_ptr(), tw_split.data_ptr(),
+               out.data_ptr(), *xp.shape, got.shape[1], nfft, hop, int(log_out),
+               eps or 0.0, torch.cuda.current_stream().cuda_stream)
+        launch = stft_power.build_library().stft_power_launch
+        check(launch(*raw) == 0, "stft_power raw launch")
+        sync()
+        check(torch.equal(out, got), "raw launch differs from the wrapper's")
+        w_ms, host_ms = cuda_ms(wrapper, reps=50, warm=3), host_call_ms(wrapper)
+        d_ms = cuda_ms(lambda: launch(*raw), reps=200, warm=5)
         p_ms = cuda_ms(lambda: stft_power.stft_power_reference(xp, framing, eps), reps=10, warm=2)
-        l_ms = cuda_ms(library, reps=20, warm=2)
+        l_ms = cuda_ms(library, reps=50, warm=3)
         flops, nbytes = stft_power_work(rows, xp.numel(), nfft, n_bins, log_out)
         b_ms, b_by = bound_ms(flops, nbytes)
-        dft_flops = 2 * rows * nfft * 2 * n_bins  # the kernel's own DFT-by-product work
         limit = ("max abs err {:.3e} on bins above 1e-6 x peak (limit 1e-3)" if log_out
                  else "at {:.3f} of the power limit")
         log(f"phase 8: stft_power at the {label} ({tuple(xp.shape)} padded, {rows} frames, "
             f"{'log' if log_out else 'power'}, {launches} launches on the path): kernel vs "
-            f"plain {limit.format(within)}, max abs err {err:.3e}; kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, torch.stft {l_ms:.4f} ms (kernel / torch.stft = "
-            f"{k_ms / l_ms:.2f}; torch.stft vs plain {limit.format(lib_within)}); bound "
-            f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP as an FFT, "
-            f"{nbytes / 1e6:.1f} MB), kernel at {100 * b_ms / k_ms:.2f}% of it; the "
-            f"kernel's DFT products, {dft_flops / 1e9:.2f} GFLOP, ran at "
-            f"{dft_flops / k_ms / 1e9:.2f} TFLOP/s {tag}")
+            f"plain {limit.format(within)}, max abs err {err:.3e}; through the wrapper "
+            f"{w_ms:.4f} ms (its host time {host_ms:.4f} ms per call), plain {p_ms:.4f} ms, "
+            f"torch.stft {l_ms:.4f} ms (wrapper / torch.stft = {w_ms / l_ms:.3f}, both calls "
+            f"as the host issues them; torch.stft vs plain {limit.format(lib_within)}); the "
+            f"kernel alone (C launch) {d_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+            f"({flops / 1e9:.3f} GFLOP as an FFT, {nbytes / 1e6:.1f} MB): the kernel alone "
+            f"at {100 * b_ms / d_ms:.2f}% of it, through the wrapper {100 * b_ms / w_ms:.2f}%; "
+            f"the kernel alone ran the FFT at {flops / d_ms / 1e9:.3f} TFLOP/s and "
+            f"{nbytes / d_ms / 1e9:.3f} TB/s {tag}")
         return {"name": f"stft_power ({label})", "route": "cuda",
                 "source": "dvae_tpu_torch/csrc/stft_power.cu",
                 "replaces": "dvae_tpu/ops/pallas_stft.py:80", "launches": launches,
-                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": l_ms}
+                "max_abs_err": err, "ms": w_ms, "device_ms": d_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
 
     entries = [
         time_stft(padded_batch(clean_train)[0].to(dev), False, "train frame set",

@@ -9,10 +9,11 @@ no CPU mode). Tolerances: a frozen chain (var_rw = 0) is the same decoder
 arithmetic in another summation order, rtol 1e-5. A live chain fed the
 same noise may flip an acceptance where ``log u`` lies within rounding of
 ``E - E'``, so at least 99% of rows must end at the same z, and those rows'
-samples agree to rtol 1e-4. The STFT power kernel sums each 1024-term DFT
-product in another order than the plain matmuls: power agrees to rtol 1e-4
-above a floor of 1e-6 of the batch's peak power, log power to 1e-3
-absolute on the bins above that floor.
+samples agree to rtol 1e-4. The STFT power kernel takes an FFT where the
+plain version takes matmuls, so the two round differently: power agrees to
+rtol 1e-4 above a floor of 1e-6 of the batch's peak power, log power to
+1e-3 absolute on the bins above that floor; a silent row gives exactly 0,
+or log(eps).
 """
 
 import numpy as np
@@ -126,34 +127,76 @@ def _quirk_length():
                 if padded_length(n, StftConfig()) != n)
 
 
+def _tone(gen, batch, length):
+    t = torch.arange(length, device=gen.device) / 16000.0
+    return 0.3 * torch.sin(2 * torch.pi * 220 * t) + 0.2 * torch.randn(
+        (batch, length), generator=gen, device=gen.device)
+
+
+def _check_stft(got, p, log_out):
+    """Kernel output against the plain power ``p``, at the stated limits."""
+    assert got.shape == p.shape
+    floor = 1e-6 * p.amax()
+    if log_out:
+        big = p > floor
+        assert (got[big] - torch.log(p[big] + 1e-12)).abs().max() < 1e-3
+    else:
+        torch.testing.assert_close(got, p, rtol=1e-4, atol=float(floor))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("log_out", [False, True], ids=["power", "log"])
 @pytest.mark.parametrize("center", [False, True], ids=["nocenter", "center"])
 def test_cuda_stft_power_matches_plain(cuda, center, log_out):
     cfg = StftConfig(center=center)
     gen = torch.Generator(device=cuda).manual_seed(5)
-    # frame counts that are not a multiple of the 64-frame tile, the end-pad
-    # quirk, a batch, and (centered) a signal shorter than nfft / 2
-    cases = [(1, 20480), (3, 12345), (2, _quirk_length()), (1, 81600)]
-    if center:
-        cases.append((2, 300))
-    for batch, length in cases:
-        t = torch.arange(length, device=cuda) / 16000.0
-        x = 0.3 * torch.sin(2 * torch.pi * 220 * t) + 0.2 * torch.randn(
-            (batch, length), generator=gen, device=cuda)
+    # frame counts that are not a multiple of any block's frames, the
+    # end-pad quirk, a batch, a launch large enough for 32 frames per block
+    # (>= 8 such blocks per SM), and (centered) a signal shorter than nfft / 2;
+    # then the FFT's edges: a silent row beside a full-scale one, and the
+    # fewest frames a signal gives (one uncentred, two centred)
+    cases = [_tone(gen, 1, 20480), _tone(gen, 3, 12345), _tone(gen, 2, _quirk_length()),
+             _tone(gen, 1, 81600), _tone(gen, 128, 81600)]
+    cases += [_tone(gen, 2, 300)] if center else []
+    edges = _tone(gen, 3, 20480)
+    edges[1] = 0.0
+    edges[2] = torch.where(edges[2] > 0, 1.0, -1.0)
+    cases += [edges, _tone(gen, 1, 200 if center else 769)]
+    runs = []
+    for x in cases:
         before = stft_power.launches
         got = log_power_spectrogram(x, cfg) if log_out else power_spectrogram(x, cfg)
         torch.cuda.synchronize()
         assert stft_power.launches == before + 1
         p = stft_power.stft_power_reference(x, cfg)
         assert stft_power.launches == before + 1  # the plain version launches nothing
-        assert got.shape == p.shape
-        floor = 1e-6 * p.amax()
-        if log_out:
-            big = p > floor
-            assert (got[big] - torch.log(p[big] + 1e-12)).abs().max() < 1e-3
-        else:
-            torch.testing.assert_close(got, p, rtol=1e-4, atol=float(floor))
+        _check_stft(got, p, log_out)
+        runs.append((got, p))
+    assert runs[-1][0].shape[-2] == (2 if center else 1)
+    (got, p), _ = runs[-2:]  # the silent row: 0, or log(eps) as the plain version gives it
+    assert not p[1].any()
+    assert torch.equal(got[1], torch.log(p[1] + 1e-12) if log_out else p[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft,hop", [(256, 64), (512, 128), (2048, 512), (1024, 251),
+                                      (1024, 1)])
+def test_cuda_stft_power_other_framings(cuda, nfft, hop):
+    """Every frame size the kernel is built for, an odd hop (unaligned
+    frames) and a hop of one sample; the shared memory the wrapper checks
+    is the kernel's own."""
+    cfg = StftConfig(wlen_sec=nfft / 16000, hop_percent=hop / nfft, center=False,
+                     pad_at_end=False)
+    assert (cfg.nfft, cfg.hop) == (nfft, hop)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _tone(gen, 3, 3 * nfft + 77 if hop > 1 else nfft + 300)
+    for log_out in (False, True):
+        got = stft_power._launch(x, cfg, 1e-12 if log_out else None)
+        _check_stft(got, stft_power.stft_power_reference(x, cfg), log_out)
+    lib = stft_power.build_library()
+    assert lib.stft_power_warps() == stft_power._WARPS
+    for fpb in (8, 32):
+        assert lib.stft_power_smem_bytes(nfft, hop, fpb) == stft_power._smem_bytes(nfft, hop, fpb)
 
 
 def test_stft_power_dispatch_raises_off_cpu_and_cuda():
