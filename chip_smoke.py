@@ -7,18 +7,24 @@ Phases, in order; any failure exits non-zero:
 
 1. device and build: the card's name and power limit, then the MH-chain
    kernel built from ``dvae_tpu_torch/csrc/mh_chain.cu``;
-2. kernel against its plain PyTorch version on the card at full width
-   (F 513, L 16, H 128/128): frozen chain, live E-step and WF segments fed
-   the same noise, a conditioned row bias, the mismatch raise and a
-   (128, 64) hidden stack;
+2. both bodies of the MH-chain kernel, the bf16 tensor-core body
+   (``fast_decoder=True``) and the f32 body, each against the plain
+   PyTorch chain of its precision on the card at full width (F 513, L 16,
+   H 128/128): frozen chain, live E-step and WF segments fed the same
+   noise, a (128, 64) hidden stack, a conditioned row bias and the
+   mismatch raise; the bf16 body also against the f32 plain chain,
+   printed without a limit;
 3. the M1 ``Enhancer`` end to end on B = 32 synthetic ~5.1 s utterances at
-   the full ``McemConfig()`` budget: the kernel's launch count must rise by
-   exactly niter + 1, outputs must be finite; then the frozen-chain config
-   runs once through the kernel and once through the plain chain, and masks
-   and waveforms must agree, with the Wiener partition s + n = x;
-4. times (CUDA events, warm): kernel and plain chain per E-step and WF
-   segment at main-path shape, the NMF M-step, and the whole
-   ``enhance_batch``, each with the card's name and power limit;
+   the full ``McemConfig()`` budget: the bf16 body's launch count must rise
+   by exactly niter + 1, outputs must be finite; the same with
+   ``fast_decoder=False`` through the f32 body; then, in each precision,
+   the frozen-chain config runs once through the kernel and once through
+   the plain chain, and masks and waveforms must agree, with the Wiener
+   partition s + n = x;
+4. times (CUDA events, warm): each body and its plain chain per E-step and
+   WF segment at main-path shape, the NMF M-step, and the whole
+   ``enhance_batch`` (default config, so the bf16 body), each with the
+   card's name and power limit;
 5. the STFT power kernel against its plain version on the card: power and
    log epilogues, ``center`` off and on, frame counts off any block's
    frames, the end-pad quirk, a short centered signal, a silent row (exactly
@@ -66,9 +72,16 @@ SEED = 0
 B, SECONDS, FS = 32, 5.1, 16000
 M1_TRAIN_UTTS, M1_VALID_UTTS, M1_EPOCHS = 128, 16, 3
 VAD_TRAIN_UTTS, VAD_VALID_UTTS, VAD_EPOCHS, VAD_BATCH = 256, 32, 4, 16
-# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet): f32 on CUDA cores, dense bf16 on
+# tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the bf16 body against the plain chain of its precision: both round the
+# same operands to bf16 and sum in f32 in another order, so a tanh output
+# within rounding of a bf16 rounding boundary can round the other way and
+# move its row's Vs by up to ~1e-3 relative (a few rows in a thousand)
+BF16_MAX_REL, BF16_REL, BF16_SHARE = 5e-3, 1e-5, 0.99
 
 
 def log(msg: str) -> None:
@@ -114,17 +127,33 @@ def vad_labels(clean: np.ndarray, n_frames: int, hop: int, half: int) -> np.ndar
 
 
 def chain_work(rows, f, l, h1, h2, n_burn, n_samples, wf):
-    """(flops, bytes) one chain segment needs: every step decodes all rows
-    (plus the initial decode); each input is read once and each output
-    written once."""
+    """(product flops, elementwise flops, special functions, bytes) one
+    chain segment needs: every step decodes all rows (plus the initial
+    decode); each input is read once and each output written once. The
+    special functions are the exp, log and divide per (row, step, bin),
+    and WF mode's two divides per emitted (row, bin)."""
     steps = n_burn + n_samples + 1
     macs = rows * steps * (l * h1 + h1 * h2 + h2 * f)
     # per (row, step, bin): exp, g*Vs+Vb, max, log, divide, add
     elem = rows * steps * f * 6 + (rows * n_samples * f * 5 if wf else 0)
+    sfu = rows * steps * f * 3 + (rows * n_samples * f * 2 if wf else 0)
     weights = l * h1 + h1 * h2 + h2 * f + h1 + h2 + f
     reads = 2 * rows * f + rows + rows * l + (steps - 1) * rows * (l + 1) + weights
     writes = rows * l + (2 * rows * f if wf else n_samples * rows * f)
-    return 2 * macs + elem, 4 * (reads + writes)
+    return 2 * macs, elem, sfu, 4 * (reads + writes)
+
+
+def chain_bound_ms(work, fast):
+    """The least time of a chain segment and what sets it: the products at
+    the bf16 tensor-core peak (``fast``) or, with the elementwise work, at
+    the f32 peak; the elementwise work at the f32 peak; the bytes at the
+    HBM rate."""
+    mma, elem, _, nbytes = work
+    if not fast:
+        return bound_ms(mma + elem, nbytes)
+    t_ops = max(mma / PEAK_BF16_FLOPS, elem / PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def stft_power_work(rows, t_total, nfft, n_bins, log_out):
@@ -507,7 +536,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each, together
         for built in [pool.submit(mh_chain.build_library), pool.submit(stft_power.build_library)]:
             built.result()
-    log(f"phase 1: mh_chain and stft_power kernels built in "
+    log(f"phase 1: mh_chain (both bodies) and stft_power kernels built in "
         f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 2. kernel vs plain on the card, full width
@@ -525,75 +554,116 @@ def main() -> int:
     def rel_err(a, b):
         return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
 
+    def bf16_rule(a, b):
+        """(max rel err, share of elements within BF16_REL) of a vs b."""
+        rel = (a - b).abs() / b.abs().clamp_min(1e-30)
+        return float(rel.max()), float((rel < BF16_REL).float().mean())
+
+    def agree(a, b, fast, rtol, what):
+        """Kernel vs plain of its precision: rtol for the f32 body, the bf16
+        rule for the tensor-core body. Returns the printed comparison."""
+        if not fast:
+            err = rel_err(a, b)
+            check(err < rtol, what)
+            return f"max rel err {err:.3e} (limit {rtol:g})"
+        worst, share = bf16_rule(a, b)
+        check(worst < BF16_MAX_REL and share >= BF16_SHARE, what)
+        return (f"max rel err {worst:.3e} (limit {BF16_MAX_REL:g}), {share:.5f} of "
+                f"elements within {BF16_REL:g} (limit {BF16_SHARE})")
+
     rows = 4000  # not a multiple of the 16-row tile
     mats, x2, vb, g, z0 = chain_problem(rows)
     noise = make_chain_noise(5, rows, l, gen, dev)
-    zk, sk = run_mh_chain(mats, x2, vb, g, z0, None, noise, 2, 3, 0.0)
-    zr, sr = mh_chain_reference(mats, x2, vb, g, z0, None, noise, 2, 3, 0.0)
-    sync()
-    check(torch.equal(zk, z0), "frozen chain moved")
-    err = rel_err(sk, sr)
-    log(f"phase 2: frozen E-step chain, max rel err {err:.3e} (limit 1e-5)")
-    check(err < 1e-5, "frozen chain: kernel vs plain")
+    sr32 = mh_chain_reference(mats, x2, vb, g, z0, None, noise, 2, 3, 0.0)[1]
+    for fast in (False, True):
+        name = "bf16" if fast else "f32"
+        zk, sk = run_mh_chain(mats, x2, vb, g, z0, None, noise, 2, 3, 0.0, fast_decoder=fast)
+        zr, sr = mh_chain_reference(mats, x2, vb, g, z0, None, noise, 2, 3, 0.0,
+                                    fast_decoder=fast)
+        sync()
+        check(torch.equal(zk, z0), "frozen chain moved")
+        log(f"phase 2: {name} body, frozen E-step chain, "
+            + agree(sk, sr, fast, 1e-5, f"frozen chain: {name} kernel vs plain"))
+        if fast:
+            worst, share = bf16_rule(sk, sr32)
+            log(f"phase 2: bf16 body against the f32 plain chain (no limit): max rel err "
+                f"{worst:.3e}, {share:.5f} of elements within {BF16_REL:g}")
 
-    for wf in (False, True):
-        for h_dim in ((128, 128), (128, 64)):
-            mats_h, x2, vb, g, z0 = chain_problem(rows, h_dim)
-            noise = make_chain_noise(12, rows, l, gen, dev)
-            zk, *ok = run_mh_chain(mats_h, x2, vb, g, z0, None, noise, 6, 6, 0.01, wf)
-            zr, *orf = mh_chain_reference(mats_h, x2, vb, g, z0, None, noise, 6, 6, 0.01, wf)
-            sync()
-            same = (zk - zr).abs().amax(-1) < 1e-4
-            moved = float((zk != z0).any(-1).float().mean())
-            errs = [rel_err(a[..., same, :], b[..., same, :]) for a, b in zip(ok, orf)]
-            log(f"phase 2: live {'WF' if wf else 'E-step'} chain H={h_dim}: "
-                f"{float(same.float().mean()):.4f} of rows end at the same z "
-                f"(limit 0.99), {moved:.3f} moved, max rel err on them "
-                f"{max(errs):.3e} (limit 1e-4)")
-            check(float(same.float().mean()) > 0.99 and moved > 0.5 and max(errs) < 1e-4,
-                  f"live chain wf={wf} H={h_dim}: kernel vs plain")
+    for fast in (False, True):
+        for wf in (False, True):
+            for h_dim in ((128, 128), (128, 64)):
+                mats_h, x2, vb, g, z0 = chain_problem(rows, h_dim)
+                noise = make_chain_noise(12, rows, l, gen, dev)
+                args = (mats_h, x2, vb, g, z0, None, noise, 6, 6, 0.01, wf, fast)
+                zk, *ok = run_mh_chain(*args)
+                zr, *orf = mh_chain_reference(*args)
+                sync()
+                same = (zk - zr).abs().amax(-1) < 1e-4
+                moved = float((zk != z0).any(-1).float().mean())
+                check(float(same.float().mean()) > 0.99 and moved > 0.5,
+                      f"live chain fast={fast} wf={wf} H={h_dim}: rows that end at the same z")
+                said = [agree(a[..., same, :], b[..., same, :], fast, 1e-4,
+                              f"live chain fast={fast} wf={wf} H={h_dim}: kernel vs plain")
+                        for a, b in zip(ok, orf)]
+                log(f"phase 2: {'bf16' if fast else 'f32'} body, live {'WF' if wf else 'E-step'} "
+                    f"chain H={h_dim}: {float(same.float().mean()):.4f} of rows end at the same "
+                    f"z (limit 0.99), {moved:.3f} moved; on them {'; '.join(said)}")
 
     w1y = 0.3 * torch.randn((2, 128), generator=gen, device=dev)
     cmats = (mats[0], w1y, *mats[2:])
-    y = (torch.rand((rows, 2), generator=gen, device=dev) > 0.5).float()
+    y = torch.rand((rows, 2), generator=gen, device=dev)  # soft labels
     noise = make_chain_noise(1, rows, l, gen, dev)
     _, x2, vb, g, z0 = chain_problem(rows)
-    _, sk = run_mh_chain(cmats, x2, vb, g, z0, y, noise, 0, 1, 0.0)
-    _, sr = mh_chain_reference(cmats, x2, vb, g, z0, y, noise, 0, 1, 0.0)
-    sync()
-    err = rel_err(sk, sr)
-    log(f"phase 2: conditioned row bias, max rel err {err:.3e} (limit 1e-5)")
-    check(err < 1e-5, "conditioned chain: kernel vs plain")
-    for bad_mats, bad_y in ((cmats, None), (mats, y)):
-        try:
-            run_mh_chain(bad_mats, x2, vb, g, z0, bad_y, noise, 0, 1, 0.0)
-        except ValueError as e:
-            check("conditioning mismatch" in str(e), f"mismatch message: {e}")
-        else:
-            raise RuntimeError("conditioning mismatch did not raise")
-    log("phase 2: conditioning mismatch raises both ways")
+    for fast in (False, True):
+        _, sk = run_mh_chain(cmats, x2, vb, g, z0, y, noise, 0, 1, 0.0, fast_decoder=fast)
+        _, sr = mh_chain_reference(cmats, x2, vb, g, z0, y, noise, 0, 1, 0.0, fast_decoder=fast)
+        sync()
+        log(f"phase 2: {'bf16' if fast else 'f32'} body, conditioned row bias, "
+            + agree(sk, sr, fast, 1e-5, f"conditioned chain fast={fast}: kernel vs plain"))
+        for bad_mats, bad_y in ((cmats, None), (mats, y)):
+            try:
+                run_mh_chain(bad_mats, x2, vb, g, z0, bad_y, noise, 0, 1, 0.0, fast_decoder=fast)
+            except ValueError as e:
+                check("conditioning mismatch" in str(e), f"mismatch message: {e}")
+            else:
+                raise RuntimeError("conditioning mismatch did not raise")
+    log("phase 2: conditioning mismatch raises both ways, in both bodies")
     sync()
 
     # ---- 3. the M1 Enhancer end to end
     model = init_xavier_(VAE(513, 16, (128, 128)), torch.Generator().manual_seed(SEED))
     wavs = synthetic_wavs(np.random.default_rng(SEED))
     cfg = EnhancerConfig()
+    check(cfg.mcem.fast_decoder, "the default config runs the bf16 body")
     enh = Enhancer(model, cfg)
-    mh_chain.launches = 0
+    mh_chain.launches = mh_chain.launches_mma = 0
     t0 = time.perf_counter()
     out = enh.enhance_batch(wavs, seed=SEED)
     t_first = time.perf_counter() - t0
-    launches = mh_chain.launches
+    launches, launches_mma = mh_chain.launches, mh_chain.launches_mma
     want = cfg.mcem.niter + 1
-    log(f"phase 3: enhance_batch B={B} ran {launches} mh_chain launches "
-        f"(expected niter + 1 = {want}), first call {t_first:.3f} s")
-    check(launches == want, f"{launches} launches, expected {want}")
+    log(f"phase 3: enhance_batch B={B} ran {launches_mma} launches of the bf16 "
+        f"tensor-core body, {launches} mh_chain launches in all (expected niter + 1 = "
+        f"{want}), first call {t_first:.3f} s")
+    check(launches_mma == launches == want, f"{launches_mma} bf16 body launches of "
+          f"{launches}, expected {want}")
     check(len(out) == B and all(len(s) == len(x) == len(n) for (s, n), x in zip(out, wavs)),
           "output count and lengths")
     check(all(np.isfinite(s).all() and np.isfinite(n).all() for s, n in out), "finite outputs")
     cost = enh.last_cost
     check(cost.shape == (cfg.mcem.niter,) and np.isfinite(cost).all(), "finite cost trajectory")
     log(f"phase 3: cost {cost[0]:.5f} -> {cost[-1]:.5f}, outputs finite")
+
+    enh32 = Enhancer(model, EnhancerConfig(mcem=McemConfig(fast_decoder=False)))
+    mh_chain.launches = mh_chain.launches_mma = 0
+    out32 = enh32.enhance_batch(wavs, seed=SEED)
+    launches_f32 = mh_chain.launches - mh_chain.launches_mma
+    log(f"phase 3: enhance_batch with fast_decoder=False ran {launches_f32} launches of "
+        f"the f32 body ({mh_chain.launches_mma} of the bf16 body); cost "
+        f"{enh32.last_cost[0]:.5f} -> {enh32.last_cost[-1]:.5f}")
+    check(launches_f32 == want and mh_chain.launches_mma == 0, "f32 body launch count")
+    check(all(np.isfinite(s).all() and np.isfinite(n).all() for s, n in out32),
+          "finite outputs, f32 body")
 
     # the padded batch as the main path sees it, for the comparisons and times
     xw, x_scale, mask, n_pad, frames = enh._prepare(wavs, None)
@@ -616,40 +686,45 @@ def main() -> int:
             mcem.run_mh_chain = run_mh_chain
         check(mh_chain.launches == before, "the plain run launched the kernel")
 
-    frozen = McemConfig(var_rw=0.0)
-    with torch.inference_mode():
-        rk = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen)
-        with plain_chain():
-            rp = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen)
-    sync()
-    mask_err = max(float((rk.wfs - rp.wfs).abs().max()), float((rk.wfn - rp.wfn).abs().max()))
-    cost_err = rel_err(rk.cost, rp.cost)
-    part = float(((rk.wfs + rk.wfn - 1.0).abs() * maskb[:, :, None]).max())
-    log(f"phase 3: frozen-chain run_mcem kernel vs plain: max mask diff {mask_err:.3e} "
-        f"(limit 1e-3), max cost rel diff {cost_err:.3e} (limit 1e-4), "
-        f"|WFs + WFn - 1| <= {part:.3e} on valid frames")
-    check(mask_err < 1e-3 and cost_err < 1e-4 and part < 1e-5, "frozen run_mcem: kernel vs plain")
+    for fast in (True, False):
+        name = "bf16" if fast else "f32"
+        frozen = McemConfig(var_rw=0.0, fast_decoder=fast)
+        with torch.inference_mode():
+            rk = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen)
+            with plain_chain():
+                rp = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen)
+        sync()
+        mask_err = max(float((rk.wfs - rp.wfs).abs().max()),
+                       float((rk.wfn - rp.wfn).abs().max()))
+        cost_err = rel_err(rk.cost, rp.cost)
+        part = float(((rk.wfs + rk.wfn - 1.0).abs() * maskb[:, :, None]).max())
+        log(f"phase 3: {name} frozen-chain run_mcem kernel vs plain: max mask diff "
+            f"{mask_err:.3e} (limit 1e-3), max cost rel diff {cost_err:.3e} (limit 1e-4), "
+            f"|WFs + WFn - 1| <= {part:.3e} on valid frames (limit 1e-5)")
+        check(mask_err < 1e-3 and cost_err < 1e-4 and part < 1e-5,
+              f"{name} frozen run_mcem: kernel vs plain")
 
-    # float32 wire, device-side noise estimate; compared where the ISTFT's
-    # window normalizer is full (the first and last nfft samples of an
-    # utterance divide by a normalizer down to ~1e-10, as in the reference)
-    fcfg = EnhancerConfig(mcem=frozen, noise_from_partition=False, wire_dtype="float32")
-    enh_k = Enhancer(model, fcfg)
-    out_k = enh_k.enhance_batch(wavs, seed=SEED)
-    with plain_chain():
-        out_p = enh_k.enhance_batch(wavs, seed=SEED)
-    wave_err, part_err = 0.0, 0.0
-    nfft, hop = cfg.stft.nfft, cfg.stft.hop
-    for (sk_, nk_), (sp_, _), xx, fr in zip(out_k, out_p, wavs, frames):
-        peak = float(np.abs(xx).max())
-        core = slice(nfft, min(len(xx), (fr - 1) * hop + nfft) - nfft)
-        wave_err = max(wave_err, float(np.abs(sk_ - sp_)[core].max()) / peak)
-        part_err = max(part_err, float(np.abs(sk_ + nk_ - xx)[core].max()) / peak)
-    log(f"phase 3: frozen-chain enhance_batch kernel vs plain: max |s_k - s_p| / peak "
-        f"{wave_err:.3e} (limit 1e-3); Wiener partition max |s + n - x| / peak "
-        f"{part_err:.3e} on covered samples (limit 1e-4)")
-    check(wave_err < 1e-3 and part_err < 1e-4, "frozen enhance_batch: kernel vs plain, partition")
-    sync()
+        # float32 wire, device-side noise estimate; compared where the ISTFT's
+        # window normalizer is full (the first and last nfft samples of an
+        # utterance divide by a normalizer down to ~1e-10, as in the reference)
+        fcfg = EnhancerConfig(mcem=frozen, noise_from_partition=False, wire_dtype="float32")
+        enh_k = Enhancer(model, fcfg)
+        out_k = enh_k.enhance_batch(wavs, seed=SEED)
+        with plain_chain():
+            out_p = enh_k.enhance_batch(wavs, seed=SEED)
+        wave_err, part_err = 0.0, 0.0
+        nfft, hop = cfg.stft.nfft, cfg.stft.hop
+        for (sk_, nk_), (sp_, _), xx, fr in zip(out_k, out_p, wavs, frames):
+            peak = float(np.abs(xx).max())
+            core = slice(nfft, min(len(xx), (fr - 1) * hop + nfft) - nfft)
+            wave_err = max(wave_err, float(np.abs(sk_ - sp_)[core].max()) / peak)
+            part_err = max(part_err, float(np.abs(sk_ + nk_ - xx)[core].max()) / peak)
+        log(f"phase 3: {name} frozen-chain enhance_batch kernel vs plain: max |s_k - s_p| "
+            f"/ peak {wave_err:.3e} (limit 1e-3); Wiener partition max |s + n - x| / peak "
+            f"{part_err:.3e} on covered samples (limit 1e-4)")
+        check(wave_err < 1e-3 and part_err < 1e-4,
+              f"{name} frozen enhance_batch: kernel vs plain, partition")
+        sync()
 
     # ---- 4. times at main-path shape
     def cuda_ms(fn, reps, warm=1):
@@ -672,33 +747,38 @@ def main() -> int:
     x2_r = x2b.reshape(rows_main, f)
     z_r = z0b.reshape(rows_main, l).contiguous()
     h1, h2 = enh.mats[0].shape[1], enh.mats[3].shape[1]
-    times = {}
-    for wf in (False, True):
-        n_burn = mc.burnin_wf if wf else mc.burnin_e_step
-        n_samp = mc.nsamples_wf if wf else mc.nsamples_e_step
-        noise = make_chain_noise(n_burn + n_samp, rows_main, l, gen, dev)
-        args = (enh.mats, x2_r, vb_r, g_r, z_r, None, noise, n_burn, n_samp, mc.var_rw, wf)
-        k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
-        p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
-        flops, nbytes = chain_work(rows_main, f, l, h1, h2, n_burn, n_samp, wf)
-        b_ms, b_by = bound_ms(flops, nbytes)
-        times[wf] = (k_ms, p_ms, b_ms, b_by)
-        log(f"phase 4: mh_chain {'WF' if wf else 'E-step'} segment rows={rows_main} "
-            f"steps={n_burn}+{n_samp}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB), kernel at {100 * b_ms / k_ms:.1f}% of bound {tag}")
+    times, max_abs = {}, {}
+    for fast in (True, False):
+        name = "bf16" if fast else "f32"
+        for wf in (False, True):
+            n_burn = mc.burnin_wf if wf else mc.burnin_e_step
+            n_samp = mc.nsamples_wf if wf else mc.nsamples_e_step
+            noise = make_chain_noise(n_burn + n_samp, rows_main, l, gen, dev)
+            args = (enh.mats, x2_r, vb_r, g_r, z_r, None, noise, n_burn, n_samp, mc.var_rw,
+                    wf, fast)
+            k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
+            p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
+            work = chain_work(rows_main, f, l, h1, h2, n_burn, n_samp, wf)
+            b_ms, b_by = chain_bound_ms(work, fast)
+            times[fast, wf] = (k_ms, p_ms, b_ms, b_by)
+            log(f"phase 4: mh_chain {name} body, {'WF' if wf else 'E-step'} segment "
+                f"rows={rows_main} steps={n_burn}+{n_samp}: kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({work[0] / 1e9:.2f} GFLOP of "
+                f"products at the {name} peak, {work[1] / 1e9:.3f} GFLOP elementwise, "
+                f"{work[3] / 1e6:.1f} MB; {work[2]:.3e} exp + log + divide), kernel at "
+                f"{100 * b_ms / k_ms:.2f}% of bound {tag}")
 
-    # max abs error of the kernel at main-path shape: frozen E-step segment
-    noise = make_chain_noise(mc.burnin_e_step + mc.nsamples_e_step, rows_main, l, gen, dev)
-    fargs = (enh.mats, x2_r, vb_r, g_r, z_r, None, noise, mc.burnin_e_step,
-             mc.nsamples_e_step, 0.0)
-    _, sk = run_mh_chain(*fargs)
-    _, sr = mh_chain_reference(*fargs)
-    sync()
-    max_abs = float((sk - sr).abs().max())
-    log(f"phase 4: frozen E-step segment at main-path shape: max abs err {max_abs:.3e}, "
-        f"max rel err {rel_err(sk, sr):.3e}")
-    check(rel_err(sk, sr) < 1e-5, "frozen segment at main-path shape")
+        # max abs error of the body at main-path shape: frozen E-step segment
+        noise = make_chain_noise(mc.burnin_e_step + mc.nsamples_e_step, rows_main, l, gen, dev)
+        fargs = (enh.mats, x2_r, vb_r, g_r, z_r, None, noise, mc.burnin_e_step,
+                 mc.nsamples_e_step, 0.0, False, fast)
+        _, sk = run_mh_chain(*fargs)
+        _, sr = mh_chain_reference(*fargs)
+        sync()
+        max_abs[fast] = float((sk - sr).abs().max())
+        log(f"phase 4: {name} body, frozen E-step segment at main-path shape: max abs err "
+            f"{max_abs[fast]:.3e}, " + agree(sk, sr, fast, 1e-5, f"{name} frozen segment at "
+                                             "main-path shape"))
 
     vs_s = torch.rand((mc.nsamples_e_step, B, n_pad, f), generator=gen, device=dev) + 0.05
     m_ms = cuda_ms(lambda: nmf_m_step(x2b, vs_s, w, h, g, maskb, mc.eps), reps=5)
@@ -711,10 +791,10 @@ def main() -> int:
         enh.enhance_batch(wavs, seed=SEED)
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls))
-    chain_s = (mc.niter * times[False][0] + times[True][0]) / 1e3
+    chain_s = (mc.niter * times[True, False][0] + times[True, True][0]) / 1e3
     log(f"phase 4: enhance_batch B={B} wall {', '.join(f'{t:.4f}' for t in walls)} s "
         f"(median {wall:.4f} s, {B / wall:.2f} utt/s) {tag}")
-    log(f"phase 4: breakdown of the median: chain kernel {chain_s:.4f} s "
+    log(f"phase 4: breakdown of the median: chain kernel (bf16 body) {chain_s:.4f} s "
         f"({100 * chain_s / wall:.1f}%), M-step {mc.niter * m_ms / 1e3:.4f} s "
         f"({100 * mc.niter * m_ms / 1e3 / wall:.1f}%), rest "
         f"{wall - chain_s - mc.niter * m_ms / 1e3:.4f} s; peak device memory "
@@ -725,12 +805,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
         stft_entries = training_phases(work, wavs, cuda_ms, tag)
 
-    k_ms, p_ms, b_ms, b_by = times[False]
-    log(json.dumps({"kernels": [{
-        "name": "mh_chain", "route": "cuda", "source": "dvae_tpu_torch/csrc/mh_chain.cu",
-        "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": launches,
-        "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}, *stft_entries]}))
+    def chain_entry(name, fast, n):
+        k_ms, p_ms, b_ms, b_by = times[fast, False]  # the E-step segment
+        return {"name": name, "route": "cuda", "source": "dvae_tpu_torch/csrc/mh_chain.cu",
+                "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": n,
+                "max_abs_err": max_abs[fast], "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
+
+    log(json.dumps({"kernels": [chain_entry("mh_chain", True, launches_mma),
+                                chain_entry("mh_chain_f32", False, launches_f32),
+                                *stft_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

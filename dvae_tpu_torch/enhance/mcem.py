@@ -32,9 +32,13 @@ class McemConfig:
     the wrong argument slots, so it effectively runs E-step 30/30 and WF
     75/30; :meth:`m1_reference_effective` builds that budget set.
 
-    ``fast_stats`` and ``fast_decoder`` are carried so a config means the
-    same in both packages, and are ignored here: the kernel path is all-f32
-    in the JAX package too.
+    ``fast_decoder`` selects the chain decoder's precision, on the kernel
+    and on the plain path alike: True (the default) rounds both operands of
+    its three products to bf16 and sums in f32, as the JAX package's
+    ``make_mlp_decoder(fast=True)`` does (the kernel's tensor-core body);
+    False keeps them f32. The sample planes stay f32 either way:
+    ``fast_stats`` is carried so a config means the same in both packages,
+    and is ignored here.
     """
 
     niter: int = 100
@@ -125,7 +129,8 @@ def run_mcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
         return run_mh_chain(
             mats, x2_r, vb.reshape(b * n, f).contiguous(),
             g.reshape(b * n).contiguous(), z.reshape(b * n, l).contiguous(),
-            y_r, noise, n_burn, n_samp, cfg.var_rw, wf_mode=wf_mode)
+            y_r, noise, n_burn, n_samp, cfg.var_rw, wf_mode=wf_mode,
+            fast_decoder=cfg.fast_decoder)
 
     z = z_init.to(torch.float32)
     costs = []

@@ -16,6 +16,13 @@ sums of ``g Vs / Vx`` and ``Vb / Vx`` over those steps.
 The chain's randomness is an input, ``noise`` of shape
 ``(n_steps, rows, L + 1)``: L standard normals, then one ``log u`` with
 ``u ~ U[1e-38, 1)``. :func:`make_chain_noise` draws it for the main path.
+
+``fast_decoder`` selects the decoder's precision on both paths. False: its
+three products in f32 (the kernel's f32 body). True: as the JAX package's
+``make_mlp_decoder(fast=True)``, each product rounds both operands to bf16
+and sums in f32 (the kernel's tensor-core body, which reads the weights
+packed by :func:`pack_decoder_mma`); biases, tanh, exp and the energy stay
+f32.
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ from dvae_tpu_torch.enhance.nmf import VX_FLOOR
 # dynamic shared memory one H100 block may use
 _MAX_SMEM = 232448
 
-# kernel launches since the last reset (only the launch in run_mh_chain counts)
+# kernel launches since the last reset (only the launch in run_mh_chain
+# counts): all of them, and those of the bf16 tensor-core body
 launches = 0
+launches_mma = 0
 
 
 def extract_decoder_mlp(model, z_dim: int):
@@ -67,9 +76,16 @@ def make_chain_noise(n_steps: int, rows: int, l: int, generator: torch.Generator
     return torch.cat([eps, torch.log(u.clamp_min_(1e-38))], dim=-1)
 
 
-def _fold_bias(mats, y, rows):
+def _bf16(t):
+    """``t`` rounded to bf16 (to nearest even), as f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _fold_bias(mats, y, rows, fast_decoder=False):
     """The conditioning folded into a first-layer row bias ``b1 + y @ w1y``
-    (``None`` rows => the plain bias, shared by every row)."""
+    (``None`` rows => the plain bias, shared by every row). With
+    ``fast_decoder`` both operands of the product are rounded to bf16, as
+    the JAX package multiplies ``[z, y]`` by ``[w1z; w1y]`` in bf16."""
     w1z, w1y, b1 = mats[:3]
     if (y is None) != (w1y is None):
         raise ValueError(
@@ -80,6 +96,8 @@ def _fold_bias(mats, y, rows):
         return b1
     if y.shape[0] != rows:
         raise ValueError(f"y has {y.shape[0]} rows, expected {rows}")
+    if fast_decoder:
+        return (b1 + _bf16(y.float()) @ _bf16(w1y)).contiguous()
     return (b1 + y.float() @ w1y).contiguous()
 
 
@@ -109,21 +127,35 @@ def _check(x2, vb, g, z, noise, mats, n_burn, n_samples):
             f"bad chain shape rows={rows} n_burn={n_burn} n_samples={n_samples}")
 
 
+def decoder_reference(mats, by, fast_decoder: bool = False):
+    """The plain decoder ``z -> Vs`` of the chain, with the first layer's
+    (row) bias ``by`` from :func:`_fold_bias`."""
+    w1z, _, _, w2, b2, w3, b3 = mats
+    if fast_decoder:
+        w1z, w2, w3 = _bf16(w1z), _bf16(w2), _bf16(w3)
+        rnd = _bf16
+    else:
+        def rnd(a):
+            return a
+
+    def dec(z):
+        h = torch.tanh(rnd(z) @ w1z + by)
+        h = torch.tanh(rnd(h) @ w2 + b2)
+        return torch.exp(rnd(h) @ w3 + b3)
+
+    return dec
+
+
 def mh_chain_reference(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int,
-                       var_rw: float, wf_mode: bool = False):
+                       var_rw: float, wf_mode: bool = False, fast_decoder: bool = False):
     """Plain PyTorch chain: the same contract as :func:`run_mh_chain`,
     written as a step loop on tensors (any device)."""
     _check(x2, vb, g, z, noise, mats, n_burn, n_samples)
-    by = _fold_bias(mats, y, x2.shape[0])
-    w1z, _, _, w2, b2, w3, b3 = mats
+    dec = decoder_reference(mats, _fold_bias(mats, y, x2.shape[0], fast_decoder),
+                            fast_decoder)
     l = z.shape[-1]
     sqrt_var = math.sqrt(var_rw)
     gg = g[:, None]
-
-    def dec(z):
-        h = torch.tanh(z @ w1z + by)
-        h = torch.tanh(h @ w2 + b2)
-        return torch.exp(h @ w3 + b3)
 
     def energy(z, vs):
         vx = (gg * vs + vb).clamp_min(VX_FLOOR)
@@ -163,35 +195,101 @@ def build_library() -> ctypes.CDLL:
     process)."""
     lib = load_library("mh_chain.cu")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mh_chain_launch.argtypes = [p] * 15 + [i] * 9 + [ctypes.c_float, p]
-    lib.mh_chain_launch.restype = i
-    lib.mh_chain_smem_bytes.argtypes = [i] * 5
+    for launch in (lib.mh_chain_launch, lib.mh_chain_mma_launch):
+        launch.argtypes = [p] * 15 + [i] * 9 + [ctypes.c_float, p]
+        launch.restype = i
+    lib.mh_chain_smem_bytes.argtypes = [i] * 6
     lib.mh_chain_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
 @functools.cache
-def _check_smem(f: int, l: int, h1: int, h2: int, wf_mode: bool) -> None:
+def _check_smem(f: int, l: int, h1: int, h2: int, wf_mode: bool, mma: bool) -> None:
     """Raise unless one block's shared memory holds these widths (checked
     once each)."""
-    smem = build_library().mh_chain_smem_bytes(f, l, h1, h2, int(wf_mode))
+    smem = build_library().mh_chain_smem_bytes(f, l, h1, h2, int(wf_mode), int(mma))
     if smem > _MAX_SMEM:
         raise ValueError(f"widths need {smem} B of shared memory per block "
                          f"(> {_MAX_SMEM}): F={f} L={l} H=({h1}, {h2})")
 
 
-def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode):
-    global launches
+def pack_mma_weight(w: torch.Tensor, n_multiple: int) -> torch.Tensor:
+    """A (K, N) weight in bf16, in the B-fragment order of
+    ``mma.m16n8k16``: zero-padded to K16 (a multiple of 16) rows and to a
+    multiple of ``n_multiple`` columns, then laid out (K16 / 16 k-steps,
+    N / 8 n-tiles, 32 lanes, 4). Lane ``4 g + t`` of n-tile ``nt`` holds
+    column ``8 nt + g`` at rows ``2t, 2t + 1`` (register b0) and ``2t + 8,
+    2t + 9`` (b1) of its k-step, the lower row in the lower half."""
+    k, n = w.shape
+    kp, np_ = -(-k // 16) * 16, -(-n // n_multiple) * n_multiple
+    wp = torch.zeros((kp, np_), dtype=torch.float32, device=w.device)
+    wp[:k, :n] = w
+    # row 16 ks + 8 kh + 2 t + e0, column 8 nt + g -> [ks, nt, g, t, kh, e0]
+    wp = wp.to(torch.bfloat16).reshape(kp // 16, 2, 4, 2, np_ // 8, 8)
+    return wp.permute(0, 4, 5, 2, 1, 3).reshape(kp // 16, np_ // 8, 32, 4).contiguous()
+
+
+def _pad(v: torch.Tensor, multiple: int) -> torch.Tensor:
+    n = v.shape[0]
+    return torch.nn.functional.pad(v, (0, -n % multiple)).contiguous()
+
+
+def pack_decoder_mma(mats):
+    """The decoder as the kernel's bf16 body reads it: ``(w1p, w2p, w3p,
+    b2p, b3p)``. L, H1 and H2 are padded to multiples of 16 and F to a
+    multiple of 8 with zero weights and zero biases; a padded hidden unit
+    is tanh(0) = 0 and meets zero rows in the next layer, so the padding
+    changes nothing. The first layer's bias is the row bias ``by``, which
+    the kernel pads itself."""
+    w1z, _, _, w2, b2, w3, b3 = mats
+    return (pack_mma_weight(w1z, 16), pack_mma_weight(w2, 16), pack_mma_weight(w3, 8),
+            _pad(b2, 16), _pad(b3, 8))
+
+
+# packs of the last few decoders, each kept with its source tensors so that
+# their storage (and so their data_ptr) cannot be reused while cached
+_PACKS: dict = {}
+_PACKS_KEPT = 4
+
+
+def _packed(mats):
+    """:func:`pack_decoder_mma` of ``mats``, cached on the tensors' address,
+    version counter and shape: the launches of one enhanced batch pack once,
+    and new or updated weights pack anew."""
+    w1z, _, _, w2, b2, w3, b3 = mats
+    src = (w1z, w2, b2, w3, b3)
+    key = tuple((t.data_ptr(), t._version, tuple(t.shape)) for t in src)
+    hit = _PACKS.get(key)
+    if hit is None:
+        if len(_PACKS) >= _PACKS_KEPT:
+            del _PACKS[next(iter(_PACKS))]
+        hit = _PACKS[key] = (src, pack_decoder_mma(mats))
+    return hit[1]
+
+
+def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
+            fast_decoder):
+    global launches, launches_mma
     rows, f = x2.shape
     l = z.shape[-1]
     w1z, _, _, w2, b2, w3, b3 = mats
     h1, h2 = w1z.shape[1], w2.shape[1]
-    # layers 1 and 2 read 2 weight columns at a time as one 8-byte load
-    if h1 % 2 or h2 % 2 or w1z.data_ptr() % 8 or w2.data_ptr() % 8:
+    # the f32 body's layers 1 and 2 read 2 weight columns at a time as one
+    # 8-byte load
+    if not fast_decoder and (h1 % 2 or h2 % 2 or w1z.data_ptr() % 8 or w2.data_ptr() % 8):
         raise ValueError(f"the kernel needs even hidden widths and 8-byte aligned "
                          f"w1z/w2, got H=({h1}, {h2})")
-    _check_smem(f, l, h1, h2, wf_mode)
+    _check_smem(f, l, h1, h2, wf_mode, fast_decoder)
     lib = build_library()
+    if fast_decoder:
+        launch = lib.mh_chain_mma_launch
+        w1p, w2p, w3p, b2, b3 = _packed(mats)
+        weights = (w1p.data_ptr(), w2p.data_ptr(), b2.data_ptr(), w3p.data_ptr(),
+                   b3.data_ptr())
+    else:
+        launch = lib.mh_chain_launch
+        weights = (w1z.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
+                   b3.data_ptr())
     z_out = torch.empty((rows, l), device=x2.device)
     if wf_mode:
         outs = (torch.empty((rows, f), device=x2.device),
@@ -202,20 +300,20 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode):
         samples_p, wfs_p, wfn_p = outs[0].data_ptr(), None, None
     by_stride = h1 if by.dim() == 2 else 0
     with torch.cuda.device(x2.device):
-        err = lib.mh_chain_launch(
+        err = launch(
             x2.data_ptr(), vb.data_ptr(), g.data_ptr(), z.data_ptr(), by.data_ptr(),
-            noise.data_ptr(), w1z.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            w3.data_ptr(), b3.data_ptr(), z_out.data_ptr(), samples_p, wfs_p, wfn_p,
+            noise.data_ptr(), *weights, z_out.data_ptr(), samples_p, wfs_p, wfn_p,
             rows, f, l, h1, h2, n_burn + n_samples, n_burn, by_stride, int(wf_mode),
             math.sqrt(var_rw), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"mh_chain kernel launch failed: cudaError {err}")
     launches += 1
+    launches_mma += fast_decoder
     return (z_out, *outs)
 
 
 def run_mh_chain(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int,
-                 var_rw: float, wf_mode: bool = False):
+                 var_rw: float, wf_mode: bool = False, fast_decoder: bool = False):
     """Run one MH chain segment on a flattened (rows, F) frame batch.
 
     Args:
@@ -225,6 +323,8 @@ def run_mh_chain(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int,
         y: optional (rows, Y) conditioning labels, folded into the first
             layer's bias.
         noise: (n_burn + n_samples, rows, L + 1), see :func:`make_chain_noise`.
+        fast_decoder: bf16 products with f32 sums (the tensor-core body) if
+            True, f32 products if False.
     Returns:
         E-step mode: ``(z_final (rows, L), vs_samples (n_samples, rows, F))``.
         WF mode: ``(z_final, wfs_sum (rows, F), wfn_sum (rows, F))``.
@@ -232,8 +332,9 @@ def run_mh_chain(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int,
     _check(x2, vb, g, z, noise, mats, n_burn, n_samples)
     if x2.device.type == "cpu":
         return mh_chain_reference(mats, x2, vb, g, z, y, noise, n_burn, n_samples,
-                                  var_rw, wf_mode)
+                                  var_rw, wf_mode, fast_decoder)
     if x2.device.type != "cuda":
         raise ValueError(f"unsupported device {x2.device}")
-    by = _fold_bias(mats, y, x2.shape[0])
-    return _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode)
+    by = _fold_bias(mats, y, x2.shape[0], fast_decoder)
+    return _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
+                   fast_decoder)

@@ -5,11 +5,20 @@ Imports nothing of JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 Every test marked ``cuda`` skips without a CUDA device (the kernels have
-no CPU mode). Tolerances: a frozen chain (var_rw = 0) is the same decoder
-arithmetic in another summation order, rtol 1e-5. A live chain fed the
-same noise may flip an acceptance where ``log u`` lies within rounding of
-``E - E'``, so at least 99% of rows must end at the same z, and those rows'
-samples agree to rtol 1e-4. The STFT power kernel takes an FFT where the
+no CPU mode). The chain runs in both bodies: ``f32`` (fast_decoder=False)
+and ``bf16`` (fast_decoder=True, the tensor-core body), each against the
+plain chain of the same precision. Tolerances, f32: a frozen chain (var_rw
+= 0) is the same decoder arithmetic in another summation order, rtol 1e-5.
+A live chain fed the same noise may flip an acceptance where ``log u``
+lies within rounding of ``E - E'``, so at least 99% of rows must end at
+the same z, and those rows' samples agree to rtol 1e-4. bf16: the two
+sides round the same operands to bf16, but sum in another order, so a
+tanh output within rounding of a bf16 rounding boundary can round the
+other way and move its row's Vs by up to ~1e-3 relative; so Vs agrees to
+5e-3 relative everywhere and to 1e-5 on at least 99% of the elements, in
+a frozen chain and on the rows of a live chain that end at the same z
+(again at least 99%); ``run_mcem``'s outputs, smooth functions of Vs,
+agree to rtol 5e-3. The STFT power kernel takes an FFT where the
 plain version takes matmuls, so the two round differently: power agrees to
 rtol 1e-4 above a floor of 1e-6 of the batch's peak power, log power to
 1e-3 absolute on the bins above that floor; a silent row gives exactly 0,
@@ -34,6 +43,7 @@ from dvae_tpu_torch.ops import log_power_spectrogram, power_spectrogram, stft_po
 from dvae_tpu_torch.ops.stft import StftConfig, padded_length
 
 F, L = 513, 16
+PRECISIONS = pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
 
 
 @pytest.fixture
@@ -41,6 +51,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+def _close(a, b, fast, rtol=1e-5, atol=1e-6):
+    """Kernel against plain: at ``rtol``/``atol`` for the f32 body, by the
+    bf16 rule of the module docstring for the tensor-core body."""
+    if not fast:
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+        return
+    rel = (a - b).abs() / b.abs().clamp_min(1e-30)
+    assert float(rel.max()) < 5e-3 and float((rel < 1e-5).float().mean()) >= 0.99
 
 
 def _problem(dev, rows, h_dim=(128, 128), seed=0):
@@ -54,53 +74,58 @@ def _problem(dev, rows, h_dim=(128, 128), seed=0):
 
 
 @pytest.mark.cuda
+@PRECISIONS
 @pytest.mark.parametrize("wf_mode", [False, True], ids=["estep", "wf"])
-def test_cuda_frozen_chain_matches_plain(cuda, wf_mode):
+def test_cuda_frozen_chain_matches_plain(cuda, wf_mode, fast):
     mats, x2, vb, g, z0, gen = _problem(cuda, 1000)  # not a tile multiple
     noise = make_chain_noise(5, 1000, L, gen, cuda)
-    before = mh_chain.launches
-    out = run_mh_chain(mats, x2, vb, g, z0, None, noise, 2, 3, 0.0, wf_mode)
+    before, before_mma = mh_chain.launches, mh_chain.launches_mma
+    out = run_mh_chain(mats, x2, vb, g, z0, None, noise, 2, 3, 0.0, wf_mode, fast)
     torch.cuda.synchronize()
     assert mh_chain.launches == before + 1
-    ref = mh_chain_reference(mats, x2, vb, g, z0, None, noise, 2, 3, 0.0, wf_mode)
+    assert mh_chain.launches_mma == before_mma + fast
+    ref = mh_chain_reference(mats, x2, vb, g, z0, None, noise, 2, 3, 0.0, wf_mode, fast)
     assert torch.equal(out[0], z0)
     for a, b in zip(out[1:], ref[1:]):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        _close(a, b, fast)
 
 
 @pytest.mark.cuda
+@PRECISIONS
 @pytest.mark.parametrize("h_dim", [(128, 128), (128, 64)], ids=["square", "nonsquare"])
 @pytest.mark.parametrize("wf_mode", [False, True], ids=["estep", "wf"])
-def test_cuda_live_chain_matches_plain(cuda, h_dim, wf_mode):
+def test_cuda_live_chain_matches_plain(cuda, h_dim, wf_mode, fast):
     mats, x2, vb, g, z0, gen = _problem(cuda, 4096, h_dim, seed=1)
     noise = make_chain_noise(8, 4096, L, gen, cuda)
-    zk, *ok = run_mh_chain(mats, x2, vb, g, z0, None, noise, 4, 4, 0.01, wf_mode)
-    zr, *orf = mh_chain_reference(mats, x2, vb, g, z0, None, noise, 4, 4, 0.01, wf_mode)
+    zk, *ok = run_mh_chain(mats, x2, vb, g, z0, None, noise, 4, 4, 0.01, wf_mode, fast)
+    zr, *orf = mh_chain_reference(mats, x2, vb, g, z0, None, noise, 4, 4, 0.01, wf_mode, fast)
     same = (zk - zr).abs().amax(-1) < 1e-4
     assert same.float().mean() > 0.99
     assert (zk != z0).any(-1).float().mean() > 0.5  # the chain explores
     for a, b in zip(ok, orf):
-        torch.testing.assert_close(a[..., same, :], b[..., same, :], rtol=1e-4, atol=1e-5)
+        _close(a[..., same, :], b[..., same, :], fast, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
-def test_cuda_conditioned_bias_and_mismatch(cuda):
+@PRECISIONS
+def test_cuda_conditioned_bias_and_mismatch(cuda, fast):
     mats, x2, vb, g, z0, gen = _problem(cuda, 512, seed=2)
     w1y = 0.3 * torch.randn((2, mats[0].shape[1]), generator=gen, device=cuda)
     cmats = (mats[0], w1y, *mats[2:])
-    y = (torch.rand((512, 2), generator=gen, device=cuda) > 0.5).float()
+    y = torch.rand((512, 2), generator=gen, device=cuda)  # soft labels
     noise = make_chain_noise(1, 512, L, gen, cuda)
-    _, sk = run_mh_chain(cmats, x2, vb, g, z0, y, noise, 0, 1, 0.0)
-    _, sr = mh_chain_reference(cmats, x2, vb, g, z0, y, noise, 0, 1, 0.0)
-    torch.testing.assert_close(sk, sr, rtol=1e-5, atol=1e-6)
+    _, sk = run_mh_chain(cmats, x2, vb, g, z0, y, noise, 0, 1, 0.0, fast_decoder=fast)
+    _, sr = mh_chain_reference(cmats, x2, vb, g, z0, y, noise, 0, 1, 0.0, fast_decoder=fast)
+    _close(sk, sr, fast)
     with pytest.raises(ValueError, match="conditioning mismatch"):
-        run_mh_chain(cmats, x2, vb, g, z0, None, noise, 0, 1, 0.0)
+        run_mh_chain(cmats, x2, vb, g, z0, None, noise, 0, 1, 0.0, fast_decoder=fast)
     with pytest.raises(ValueError, match="conditioning mismatch"):
-        run_mh_chain(mats, x2, vb, g, z0, y, noise, 0, 1, 0.0)
+        run_mh_chain(mats, x2, vb, g, z0, y, noise, 0, 1, 0.0, fast_decoder=fast)
 
 
 @pytest.mark.cuda
-def test_cuda_run_mcem_frozen_matches_plain(cuda, monkeypatch):
+@PRECISIONS
+def test_cuda_run_mcem_frozen_matches_plain(cuda, monkeypatch, fast):
     """run_mcem through the kernel vs through the plain chain on the card."""
     b, n = 4, 64
     mats, x2, _, _, z0, _ = _problem(cuda, b * n, seed=3)
@@ -108,7 +133,7 @@ def test_cuda_run_mcem_frozen_matches_plain(cuda, monkeypatch):
     mask = torch.ones((b, n), device=cuda)
     mask[1, 40:] = 0.0
     cfg = McemConfig(niter=5, nsamples_e_step=3, burnin_e_step=2, nsamples_wf=4,
-                     burnin_wf=2, var_rw=0.0)
+                     burnin_wf=2, var_rw=0.0, fast_decoder=fast)
     before = mh_chain.launches
     rk = run_mcem(mats, x2, z0, mask, 7, cfg)
     assert mh_chain.launches == before + cfg.niter + 1
@@ -118,7 +143,42 @@ def test_cuda_run_mcem_frozen_matches_plain(cuda, monkeypatch):
     rp = run_mcem(mats, x2, z0, mask, 7, cfg)
     assert mh_chain.launches == before + cfg.niter + 1
     for a, b_ in zip(rk, rp):
-        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(a, b_, rtol=5e-3 if fast else 1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_default_config_runs_the_bf16_body(cuda):
+    """McemConfig() (fast_decoder=True) launches the tensor-core body at
+    every segment: niter E-step segments and one WF segment."""
+    b, n = 2, 32
+    mats, x2, _, _, z0, _ = _problem(cuda, b * n, seed=4)
+    cfg = McemConfig()
+    assert cfg.fast_decoder
+    before, before_mma = mh_chain.launches, mh_chain.launches_mma
+    res = run_mcem(mats, x2.reshape(b, n, F), z0.reshape(b, n, L),
+                   torch.ones((b, n), device=cuda), 0, cfg)
+    torch.cuda.synchronize()
+    assert mh_chain.launches_mma == before_mma + cfg.niter + 1
+    assert mh_chain.launches == before + cfg.niter + 1
+    assert torch.isfinite(res.wfs).all() and torch.isfinite(res.cost).all()
+
+
+@pytest.mark.cuda
+@PRECISIONS
+def test_cuda_tensors_never_take_the_plain_chain(cuda, monkeypatch, fast):
+    """A CUDA tensor launches the selected body; the plain chain is not
+    reached, whatever the precision."""
+    def plain(*args, **kw):
+        raise AssertionError("the plain chain ran on CUDA tensors")
+
+    monkeypatch.setattr(mh_chain, "mh_chain_reference", plain)
+    mats, x2, vb, g, z0, gen = _problem(cuda, 64, seed=5)
+    noise = make_chain_noise(3, 64, L, gen, cuda)
+    before_mma = mh_chain.launches_mma
+    z, s = run_mh_chain(mats, x2, vb, g, z0, None, noise, 1, 2, 0.01, fast_decoder=fast)
+    torch.cuda.synchronize()
+    assert mh_chain.launches_mma == before_mma + fast
+    assert s.shape == (2, 64, F) and torch.isfinite(s).all()
 
 
 def _quirk_length():
@@ -223,3 +283,16 @@ def test_cuda_build_frames_one_launch_matches_cpu(cuda):
                                rtol=1e-4, atol=float(1e-6 * want.x.max()))
     torch.testing.assert_close(torch.from_numpy(got.mean), torch.from_numpy(want.mean),
                                rtol=1e-4, atol=0.0)
+
+
+@PRECISIONS
+def test_mh_chain_dispatch_raises_off_cpu_and_cuda(fast):
+    x2 = torch.zeros((32, F), device="meta")
+    mats = (torch.zeros((L, 128), device="meta"), None, *(
+        torch.zeros(shape, device="meta") for shape in ((128,), (128, 128), (128,), (128, F), (F,))))
+    before = mh_chain.launches
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        run_mh_chain(mats, x2, x2, torch.zeros(32, device="meta"),
+                     torch.zeros((32, L), device="meta"), None,
+                     torch.zeros((1, 32, L + 1), device="meta"), 0, 1, 0.0, fast_decoder=fast)
+    assert mh_chain.launches == before

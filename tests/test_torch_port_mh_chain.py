@@ -8,6 +8,15 @@ rtol 2e-4 / atol 1e-5: the two frameworks sum in different orders (~1e-6
 relative per decoder pass), and the chain compounds it over a few steps;
 with the same noise an acceptance flip would show as an O(1) error.
 
+``fast_decoder=True`` (bf16 operands, f32 sums) is held against the JAX
+package's ``make_mlp_decoder(fast=True)`` at M1 widths. Both round the same
+operands to bf16 the same way (to nearest even) and their products are
+exact, so they differ only in the order of the f32 sums; where that puts a
+tanh output within rounding of a bf16 rounding boundary, it rounds the
+other way, and its row's Vs moves by up to ~1e-3 relative. So the limits
+are: 5e-3 relative on every element, and 1e-5 relative on at least 99% of
+them (about 0.4% differ at these weights).
+
 The CUDA kernel itself is held against the plain chain on the card in
 test_torch_port_cuda.py.
 """
@@ -18,11 +27,14 @@ import numpy as np
 import pytest
 import torch
 
+from dvae_tpu.enhance.mcem import make_mlp_decoder
 from dvae_tpu.enhance.pallas_mcem import extract_decoder_mlp as jax_extract
 from dvae_tpu.enhance.pallas_mcem import run_mh_chain as jax_chain
 from dvae_tpu.models import CVAE as JaxCVAE
 from dvae_tpu.models import VAE as JaxVAE
 from dvae_tpu_torch.enhance.mh_chain import (
+    _fold_bias,
+    decoder_reference,
     extract_decoder_mlp,
     run_mh_chain,
 )
@@ -121,8 +133,8 @@ def test_live_chain_matches_jax(m1, wf_mode, key):
         np.testing.assert_allclose(b, a, rtol=RTOL, atol=ATOL)
 
 
-def _cvae_mats(seed):
-    model = JaxCVAE(x_dim=F, y_dim=2, z_dim=L, h_dim=(32, 32))
+def _cvae_mats(seed, h_dim=(32, 32)):
+    model = JaxCVAE(x_dim=F, y_dim=2, z_dim=L, h_dim=h_dim)
     params = model.init({"params": jax.random.PRNGKey(seed),
                          "sample": jax.random.PRNGKey(seed + 1)},
                         jnp.ones((4, F)), jnp.ones((4, 2)))
@@ -176,3 +188,55 @@ def test_non_square_hidden_stack_matches_jax():
                                   0.01, False)
     np.testing.assert_allclose(ps, js, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(pz, jz, rtol=RTOL, atol=ATOL)
+
+
+def assert_bf16_close(got, want):
+    """The fast_decoder limits of the module docstring."""
+    rel = np.abs(got - want) / np.abs(want)
+    assert rel.max() < 5e-3, rel.max()
+    assert (rel < 1e-5).mean() >= 0.99, (rel < 1e-5).mean()
+
+
+@pytest.mark.parametrize("conditioned", [False, True], ids=["m1", "conditioned"])
+def test_fast_decoder_matches_jax(conditioned):
+    """The plain bf16 decoder against make_mlp_decoder(fast=True), M1
+    widths; conditioned on soft labels (not exact in bf16), whose product
+    the port folds into the first layer's row bias."""
+    rows = 512
+    rng = np.random.default_rng(11)
+    z = rng.standard_normal((rows, L)).astype(np.float32)
+    if conditioned:
+        _, _, jmats = _cvae_mats(4, h_dim=(128, 128))
+        y = rng.uniform(size=(rows, 2)).astype(np.float32)
+        zin = np.concatenate([z, y], axis=-1)
+    else:
+        _, params, *_ = problem(4, h_dim=(128, 128))
+        jmats, y, zin = jax_extract(params, L), None, z
+    want = np.asarray(make_mlp_decoder(jmats, fast=True)(jnp.asarray(zin)))
+    tmats = torch_mats(jmats)
+    by = _fold_bias(tmats, None if y is None else t(y), rows, fast_decoder=True)
+    got = decoder_reference(tmats, by, fast_decoder=True)(t(z)).numpy()
+    assert_bf16_close(got, want)
+    # the f32 decoder is further off than the bf16 rounding flips
+    f32 = decoder_reference(tmats, _fold_bias(tmats, None if y is None else t(y), rows))(t(z))
+    assert np.abs(f32.numpy() / want - 1).max() > 1e-3
+
+
+@pytest.mark.parametrize("wf_mode", [False, True], ids=["estep", "wf"])
+def test_fast_frozen_chain_matches_jax_decoder(wf_mode):
+    """A frozen chain at fast_decoder=True emits make_mlp_decoder(fast=True)
+    of its z every step (E-step), or sums its Wiener ratios (WF)."""
+    _, params, tm, x2, vb, g, z0 = problem(6, h_dim=(128, 128))
+    vs = np.asarray(make_mlp_decoder(jax_extract(params, L), fast=True)(jnp.asarray(z0)))
+    noise = jax_noise(jax.random.PRNGKey(3), 3, ROWS, L)
+    pz, *out = run_mh_chain(extract_decoder_mlp(tm, L), t(x2), t(vb), t(g), t(z0), None,
+                            noise, 1, 2, 0.0, wf_mode=wf_mode, fast_decoder=True)
+    np.testing.assert_array_equal(pz.numpy(), z0)
+    if wf_mode:
+        vsc = g[:, None] * vs
+        vx = np.maximum(vsc + vb, 1e-10)
+        np.testing.assert_allclose(out[0].numpy(), 2 * vsc / vx, rtol=5e-3)
+        np.testing.assert_allclose(out[1].numpy(), 2 * vb / vx, rtol=5e-3)
+    else:
+        for r in range(2):
+            assert_bf16_close(out[0][r].numpy(), vs)

@@ -70,7 +70,8 @@ def _enhance_both(models, wire, **cfg_kw):
     jm, params, tm = models
     jcfg = JaxEnhancerConfig(mcem=JaxMcemConfig(**BUDGET, fast_stats=False, fast_decoder=False),
                              wire_dtype=wire, **cfg_kw)
-    tcfg = EnhancerConfig(mcem=McemConfig(**BUDGET), wire_dtype=wire, **cfg_kw)
+    tcfg = EnhancerConfig(mcem=McemConfig(**BUDGET, fast_decoder=False), wire_dtype=wire,
+                          **cfg_kw)
     ws = wavs()
     jout = JaxEnhancer(jm, params, jcfg).enhance_batch(ws, key=jax.random.PRNGKey(0))
     enh = Enhancer(tm, tcfg, device="cpu")
