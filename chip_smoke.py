@@ -46,7 +46,20 @@ Phases, in order; any failure exits non-zero:
    own launch: phase 6's train frame set (power) and a phase-7 batch
    (log); then the M1 train step host-fed and on device-resident data, the
    LSTM train step, and the frame-set build, each with the card's name and
-   power limit.
+   power limit;
+9. the conditional families at full width on the phase-3 batch and the full
+   budget, weights random from the seed: M2-info (``DisentangledVAE(513, 1,
+   16, (128, 128))``, ``dec_only``) with self-soft labels from its own
+   classifier, whose spectrogram is one STFT power launch, and niter + 1
+   bf16-body chain launches with the labels folded into a row bias; M2
+   (``CVAE(513, 513, 16, (128, 128))``, ``enc_dec``) with IBM labels of the
+   clean parts, niter + 1 launches; outputs finite. Then, for both models
+   and in both bodies, the frozen-chain config through the kernel and the
+   plain chain, with phase 3's limits and the Wiener partition; then times:
+   both ``enhance_batch`` walls beside phase 4's M1, the labeling, the
+   conditioned E-step segment with its bound, the y_dim 513 fold, and the
+   STFT power kernel at the labeling launch (as in phase 8), each with the
+   card's name and power limit.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -170,6 +183,109 @@ def bound_ms(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def limit_ratio(got, p):
+    """Largest |got - p| over the power limit, rtol 1e-4 above a floor of
+    1e-6 of the batch's peak power (<= 1 passes)."""
+    return float(((got - p).abs() / (1e-4 * p.abs() + 1e-6 * p.amax())).max())
+
+
+def log_err(got, p):
+    """Largest |got - log(p + 1e-12)| on the bins above 1e-6 of the batch's
+    peak power (limit 1e-3)."""
+    big = p > 1e-6 * p.amax()
+    return float((got[big] - (p[big] + 1e-12).log()).abs().max())
+
+
+def host_call_ms(fn, reps=200):
+    """Host wall time per call of ``fn``, with no synchronize between calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def time_stft(xp, log_out, label, launches, cuda_ms, tag, phase=8):
+    """B2 against its plain version at one path's launch (the padded
+    waveform ``xp`` the wrapper hands the kernel), then times; returns the
+    path's entry of the kernels line."""
+    import torch
+
+    from dvae_tpu_torch.ops import stft_power
+    from dvae_tpu_torch.ops.stft import StftConfig, get_window
+
+    dev, sync = xp.device, torch.cuda.synchronize
+    framing = StftConfig(center=False, pad_at_end=False)  # frames of a padded waveform
+    nfft, hop, n_bins = framing.nfft, framing.hop, framing.n_bins
+    rows = xp.shape[0] * (1 + (xp.shape[1] - nfft) // hop)
+    eps = 1e-12 if log_out else None
+    win = torch.from_numpy(get_window(framing.window, nfft).astype(np.float32)).to(dev)
+
+    def library():
+        p = torch.stft(xp, nfft, hop, window=win, center=False, return_complex=True)
+        p = p.abs().square()
+        return torch.log(p + 1e-12) if log_out else p
+
+    got = stft_power._launch(xp, framing, eps)
+    power = stft_power.stft_power_reference(xp, framing)
+    plain = torch.log(power + 1e-12) if log_out else power
+    lib = library().transpose(-1, -2)
+    sync()
+    err = float((got - plain).abs().max())
+    if log_out:  # on the bins above 1e-6 of the peak power, as in phase 5
+        within, lib_within = log_err(got, power), log_err(lib, power)
+        check(within < 1e-3, f"log epilogue at the {label}: {within}")
+    else:
+        within, lib_within = limit_ratio(got, power), limit_ratio(lib, power)
+        check(within <= 1.0, f"power epilogue at the {label}: {within}")
+
+    def wrapper():
+        return stft_power._launch(xp, framing, eps)
+
+    # ms is the call the path makes, through the wrapper, as for mh_chain;
+    # device_ms is the kernel alone, its C launch back to back, without
+    # the wrapper's host time (more than a VAD batch's device time)
+    win_t, tw, tw_split = stft_power._fft_tables(nfft, framing.window, dev)
+    out = torch.empty_like(got)
+    raw = (xp.data_ptr(), win_t.data_ptr(), tw.data_ptr(), tw_split.data_ptr(),
+           out.data_ptr(), *xp.shape, got.shape[1], nfft, hop, int(log_out),
+           eps or 0.0, torch.cuda.current_stream().cuda_stream)
+    launch = stft_power.build_library().stft_power_launch
+    check(launch(*raw) == 0, "stft_power raw launch")
+    sync()
+    check(torch.equal(out, got), "raw launch differs from the wrapper's")
+    w_ms, host_ms = cuda_ms(wrapper, reps=50, warm=3), host_call_ms(wrapper)
+    d_ms = cuda_ms(lambda: launch(*raw), reps=200, warm=5)
+    p_ms = cuda_ms(lambda: stft_power.stft_power_reference(xp, framing, eps), reps=10, warm=2)
+    l_ms = cuda_ms(library, reps=50, warm=3)
+    flops, nbytes = stft_power_work(rows, xp.numel(), nfft, n_bins, log_out)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    limit = ("max abs err {:.3e} on bins above 1e-6 x peak (limit 1e-3)" if log_out
+             else "at {:.3f} of the power limit")
+    log(f"phase {phase}: stft_power at the {label} ({tuple(xp.shape)} padded, {rows} frames, "
+        f"{'log' if log_out else 'power'}, {launches} launches on the path): kernel vs "
+        f"plain {limit.format(within)}, max abs err {err:.3e}; through the wrapper "
+        f"{w_ms:.4f} ms (its host time {host_ms:.4f} ms per call), plain {p_ms:.4f} ms, "
+        f"torch.stft {l_ms:.4f} ms (wrapper / torch.stft = {w_ms / l_ms:.3f}, both calls "
+        f"as the host issues them; torch.stft vs plain {limit.format(lib_within)}); the "
+        f"kernel alone (C launch) {d_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+        f"({flops / 1e9:.3f} GFLOP as an FFT, {nbytes / 1e6:.1f} MB): the kernel alone "
+        f"at {100 * b_ms / d_ms:.2f}% of it, through the wrapper {100 * b_ms / w_ms:.2f}%; "
+        f"the kernel alone ran the FFT at {flops / d_ms / 1e9:.3f} TFLOP/s and "
+        f"{nbytes / d_ms / 1e9:.3f} TB/s {tag}")
+    return {"name": f"stft_power ({label})", "route": "cuda",
+            "source": "dvae_tpu_torch/csrc/stft_power.cu",
+            "replaces": "dvae_tpu/ops/pallas_stft.py:80", "launches": launches,
+            "max_abs_err": err, "ms": w_ms, "device_ms": d_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
+
+
+
 def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
     """Phases 5-8 on the card; returns the stft_power entries of the kernels
     line, one per path. ``mix_wavs`` is the phase-3 batch, ``work`` a
@@ -186,7 +302,6 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
     from dvae_tpu_torch.ops import log_power_spectrogram, power_spectrogram, stft_power
     from dvae_tpu_torch.ops.stft import (
         StftConfig,
-        get_window,
         n_stft_frames_clamped,
         pad_signal,
         padded_length,
@@ -211,28 +326,6 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
         t = torch.arange(length, device=dev) / FS
         return (0.3 * torch.sin(2 * torch.pi * 220 * t)
                 + 0.2 * torch.randn((batch, length), generator=gen, device=dev))
-
-    def limit_ratio(got, p):
-        """Largest |got - p| over the power limit, rtol 1e-4 above a floor
-        of 1e-6 of the batch's peak power (<= 1 passes)."""
-        return float(((got - p).abs() / (1e-4 * p.abs() + 1e-6 * p.amax())).max())
-
-    def log_err(got, p):
-        """Largest |got - log(p + 1e-12)| on the bins above 1e-6 of the
-        batch's peak power (limit 1e-3)."""
-        big = p > 1e-6 * p.amax()
-        return float((got[big] - torch.log(p[big] + 1e-12)).abs().max())
-
-    def host_call_ms(fn, reps=200):
-        """Host wall time per call of ``fn``, with no synchronize between calls."""
-        fn()
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        ms = (time.perf_counter() - t0) / reps * 1e3
-        sync()
-        return ms
 
     # ---- 5. the STFT power kernel against its plain version
     quirk = next(n for n in range(256 * 40, 256 * 120, 256)
@@ -384,80 +477,12 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
         f"{hist[-1]['valid']['f1']:.4f}")
 
     # ---- 8. the kernel at each path's own launch, then times
-    framing = StftConfig(center=False, pad_at_end=False)  # frames of a padded waveform
-
-    def time_stft(xp, log_out, label, launches):
-        """Kernel against its plain version at one path's launch (the padded
-        waveform ``xp`` the wrapper hands the kernel), then times."""
-        nfft, hop, n_bins = framing.nfft, framing.hop, framing.n_bins
-        rows = xp.shape[0] * (1 + (xp.shape[1] - nfft) // hop)
-        eps = 1e-12 if log_out else None
-        win = torch.from_numpy(get_window(framing.window, nfft).astype(np.float32)).to(dev)
-
-        def library():
-            p = torch.stft(xp, nfft, hop, window=win, center=False, return_complex=True)
-            p = p.abs().square()
-            return torch.log(p + 1e-12) if log_out else p
-
-        got = stft_power._launch(xp, framing, eps)
-        power = stft_power.stft_power_reference(xp, framing)
-        plain = torch.log(power + 1e-12) if log_out else power
-        lib = library().transpose(-1, -2)
-        sync()
-        err = float((got - plain).abs().max())
-        if log_out:  # on the bins above 1e-6 of the peak power, as in phase 5
-            within, lib_within = log_err(got, power), log_err(lib, power)
-            check(within < 1e-3, f"log epilogue at the {label}: {within}")
-        else:
-            within, lib_within = limit_ratio(got, power), limit_ratio(lib, power)
-            check(within <= 1.0, f"power epilogue at the {label}: {within}")
-
-        def wrapper():
-            return stft_power._launch(xp, framing, eps)
-
-        # ms is the call the path makes, through the wrapper, as for mh_chain;
-        # device_ms is the kernel alone, its C launch back to back, without
-        # the wrapper's host time (more than a VAD batch's device time)
-        win_t, tw, tw_split = stft_power._fft_tables(nfft, framing.window, dev)
-        out = torch.empty_like(got)
-        raw = (xp.data_ptr(), win_t.data_ptr(), tw.data_ptr(), tw_split.data_ptr(),
-               out.data_ptr(), *xp.shape, got.shape[1], nfft, hop, int(log_out),
-               eps or 0.0, torch.cuda.current_stream().cuda_stream)
-        launch = stft_power.build_library().stft_power_launch
-        check(launch(*raw) == 0, "stft_power raw launch")
-        sync()
-        check(torch.equal(out, got), "raw launch differs from the wrapper's")
-        w_ms, host_ms = cuda_ms(wrapper, reps=50, warm=3), host_call_ms(wrapper)
-        d_ms = cuda_ms(lambda: launch(*raw), reps=200, warm=5)
-        p_ms = cuda_ms(lambda: stft_power.stft_power_reference(xp, framing, eps), reps=10, warm=2)
-        l_ms = cuda_ms(library, reps=50, warm=3)
-        flops, nbytes = stft_power_work(rows, xp.numel(), nfft, n_bins, log_out)
-        b_ms, b_by = bound_ms(flops, nbytes)
-        limit = ("max abs err {:.3e} on bins above 1e-6 x peak (limit 1e-3)" if log_out
-                 else "at {:.3f} of the power limit")
-        log(f"phase 8: stft_power at the {label} ({tuple(xp.shape)} padded, {rows} frames, "
-            f"{'log' if log_out else 'power'}, {launches} launches on the path): kernel vs "
-            f"plain {limit.format(within)}, max abs err {err:.3e}; through the wrapper "
-            f"{w_ms:.4f} ms (its host time {host_ms:.4f} ms per call), plain {p_ms:.4f} ms, "
-            f"torch.stft {l_ms:.4f} ms (wrapper / torch.stft = {w_ms / l_ms:.3f}, both calls "
-            f"as the host issues them; torch.stft vs plain {limit.format(lib_within)}); the "
-            f"kernel alone (C launch) {d_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
-            f"({flops / 1e9:.3f} GFLOP as an FFT, {nbytes / 1e6:.1f} MB): the kernel alone "
-            f"at {100 * b_ms / d_ms:.2f}% of it, through the wrapper {100 * b_ms / w_ms:.2f}%; "
-            f"the kernel alone ran the FFT at {flops / d_ms / 1e9:.3f} TFLOP/s and "
-            f"{nbytes / d_ms / 1e9:.3f} TB/s {tag}")
-        return {"name": f"stft_power ({label})", "route": "cuda",
-                "source": "dvae_tpu_torch/csrc/stft_power.cu",
-                "replaces": "dvae_tpu/ops/pallas_stft.py:80", "launches": launches,
-                "max_abs_err": err, "ms": w_ms, "device_ms": d_ms, "plain_ms": p_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
-
     entries = [
         time_stft(padded_batch(clean_train)[0].to(dev), False, "train frame set",
-                  m1_launches),
+                  m1_launches, cuda_ms, tag),
         time_stft(pad_signal(torch.from_numpy(pad_utterances(
             vtrain, range(VAD_BATCH), stft_cfg)[0]).to(dev), stft_cfg).contiguous(),
-                  True, "VAD batch", vad_launches)]
+                  True, "VAD batch", vad_launches, cuda_ms, tag)]
 
     walls = []
     for _ in range(3):
@@ -499,6 +524,223 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
         f"{l_ms:.4f} ms {tag}")
 
     return entries
+
+
+def ibm_labels(clean: np.ndarray, n_frames: int) -> np.ndarray:
+    """Binary IBM labels (n_frames, 513) from the clean part: the bins
+    within 50 dB of the utterance's loudest, as the JAX package's
+    ``clean_speech_ibm`` marks them (plain spectrogram, on the CPU)."""
+    import torch
+
+    from dvae_tpu_torch.ops.stft import power_spectrogram
+
+    p = power_spectrogram(torch.from_numpy(clean.astype(np.float32))).numpy()[:n_frames]
+    db = 20.0 * np.log10(np.sqrt(p) + 1e-8)
+    return (db > db.max() - 50.0).astype(np.float32)
+
+
+def conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag: str,
+                      m1_wall: float) -> list:
+    """Phase 9 on the card: the conditional families at full width on the
+    phase-3 batch (``wavs``, mixtures of the clean parts ``cleans``);
+    returns the kernels-line entries of this path."""
+    import torch
+
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.labeling import self_soft_labels
+    from dvae_tpu_torch.enhance.mcem import McemConfig, run_mcem
+    from dvae_tpu_torch.enhance.mh_chain import (
+        fold_conditioning,
+        make_chain_noise,
+        mh_chain_reference,
+        run_mh_chain,
+    )
+    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import CVAE, DisentangledVAE
+    from dvae_tpu_torch.models.blocks import init_xavier_
+    from dvae_tpu_torch.ops import stft_power
+    from dvae_tpu_torch.ops.stft import (
+        StftConfig,
+        n_stft_frames_clamped,
+        pad_signal,
+        stft_realimag,
+    )
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    stft_cfg, mc = StftConfig(), McemConfig()
+    want = mc.niter + 1
+    f, l = 513, 16
+
+    def finite(out):
+        return len(out) == len(wavs) and all(
+            len(s) == len(x) == len(n) and np.isfinite(s).all() and np.isfinite(n).all()
+            for (s, n), x in zip(out, wavs))
+
+    # ---- 9a. M2-info (v5), dec_only, self-soft labels: counts from 0 just
+    # before the path and read just after
+    v5 = init_xavier_(DisentangledVAE(513, 1, 16, (128, 128)), torch.Generator().manual_seed(SEED))
+    enh_v5 = Enhancer(v5, EnhancerConfig(y_mode="dec_only"))
+
+    def label_v5():
+        return self_soft_labels(enh_v5.model, wavs, stft_cfg, 1, "classify_from_x")
+
+    mh_chain.launches = mh_chain.launches_mma = stft_power.launches = 0
+    t0 = time.perf_counter()
+    ys_v5 = label_v5()
+    out = enh_v5.enhance_batch(wavs, ys_v5, seed=SEED)
+    t_first = time.perf_counter() - t0
+    n_v5, n_v5_mma, n_stft = mh_chain.launches, mh_chain.launches_mma, stft_power.launches
+    soft = np.concatenate(ys_v5)
+    log(f"phase 9: M2-info DisentangledVAE(513, 1, 16, (128, 128)) dec_only, self-soft "
+        f"labels: {n_stft} stft_power launch (expected 1), {n_v5_mma} launches of the bf16 "
+        f"body, {n_v5} mh_chain launches in all (expected {want}), first call with labeling "
+        f"{t_first:.3f} s; labels {soft.shape}, mean {soft.mean():.4f}, range "
+        f"[{soft.min():.4f}, {soft.max():.4f}]; cost {enh_v5.last_cost[0]:.5f} -> "
+        f"{enh_v5.last_cost[-1]:.5f}")
+    check(n_stft == 1, f"{n_stft} stft_power launches for one self-soft batch")
+    check(n_v5_mma == n_v5 == want, f"{n_v5_mma} bf16 body launches of {n_v5}, expected {want}")
+    check(finite(out) and np.isfinite(enh_v5.last_cost).all(), "M2-info outputs finite")
+    check(all(len(y) == n_stft_frames_clamped(len(x), stft_cfg) for y, x in zip(ys_v5, wavs))
+          and np.isfinite(soft).all() and soft.min() >= 0 and soft.max() <= 1,
+          "self-soft labels: one in [0, 1] per frame")
+
+    # ---- 9b. M2 (CVAE) at y_dim 513, enc_dec, IBM labels of the clean parts
+    cvae = init_xavier_(CVAE(513, 513, 16, (128, 128)), torch.Generator().manual_seed(SEED))
+    enh_ibm = Enhancer(cvae, EnhancerConfig(y_mode="enc_dec"))
+    ys_ibm = [ibm_labels(c, n_stft_frames_clamped(len(c), stft_cfg)) for c in cleans]
+    mh_chain.launches = mh_chain.launches_mma = stft_power.launches = 0
+    out = enh_ibm.enhance_batch(wavs, ys_ibm, seed=SEED)
+    n_ibm, n_ibm_mma = mh_chain.launches, mh_chain.launches_mma
+    log(f"phase 9: M2 CVAE(513, 513, 16, (128, 128)) enc_dec, IBM labels ("
+        f"{100 * np.concatenate(ys_ibm).mean():.1f}% of bins on): {n_ibm_mma} launches of the "
+        f"bf16 body, {n_ibm} in all (expected {want}), {stft_power.launches} stft_power; cost "
+        f"{enh_ibm.last_cost[0]:.5f} -> {enh_ibm.last_cost[-1]:.5f}")
+    check(n_ibm_mma == n_ibm == want, f"IBM: {n_ibm_mma} bf16 body launches of {n_ibm}")
+    check(finite(out) and np.isfinite(enh_ibm.last_cost).all(), "M2 IBM outputs finite")
+
+    # ---- 9c. frozen chain, kernel vs plain, both bodies, both models
+    def batch_inputs(enh, ys):
+        xw, x_scale, mask, y, n_pad, _ = enh._prepare(wavs, ys, None)
+        with torch.inference_mode():
+            x = xw.to(dev).float() * x_scale.to(dev)[:, None]
+            re, im = stft_realimag(x, stft_cfg)
+            x2 = (re * re + im * im)[:, :n_pad].contiguous()
+            y = y.to(dev)
+            enc_in = torch.cat([x2, y], -1) if enh.cfg.y_mode == "enc_dec" else x2
+            z0 = enh.model.encode(enc_in, sample=False)[1]
+        return x2, z0, mask.to(dev), y
+
+    models = {"M2-info self-soft": (enh_v5, ys_v5), "M2 IBM": (enh_ibm, ys_ibm)}
+    inputs = {name: batch_inputs(*m) for name, m in models.items()}
+    nfft, hop = stft_cfg.nfft, stft_cfg.hop
+    frames = [n_stft_frames_clamped(len(x), stft_cfg) for x in wavs]
+    for name, (enh, ys) in models.items():
+        x2b, z0b, maskb, yb = inputs[name]
+        for fast in (True, False):
+            body = "bf16" if fast else "f32"
+            frozen = McemConfig(var_rw=0.0, fast_decoder=fast)
+            with torch.inference_mode():
+                rk = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen, y=yb)
+                with plain_chain():
+                    rp = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen, y=yb)
+            sync()
+            mask_err = max(float((rk.wfs - rp.wfs).abs().max()),
+                           float((rk.wfn - rp.wfn).abs().max()))
+            cost_err = float(((rk.cost - rp.cost).abs() / rp.cost.abs().clamp_min(1e-30)).max())
+            part = float(((rk.wfs + rk.wfn - 1.0).abs() * maskb[:, :, None]).max())
+            check(mask_err < 1e-3 and cost_err < 1e-4 and part < 1e-5,
+                  f"{name} {body} frozen run_mcem: kernel vs plain")
+            fcfg = EnhancerConfig(mcem=frozen, y_mode=enh.cfg.y_mode,
+                                  noise_from_partition=False, wire_dtype="float32")
+            enh_k = Enhancer(enh.model, fcfg)
+            out_k = enh_k.enhance_batch(wavs, ys, seed=SEED)
+            with plain_chain():
+                out_p = enh_k.enhance_batch(wavs, ys, seed=SEED)
+            wave_err, part_err = 0.0, 0.0
+            for (sk_, nk_), (sp_, _), xx, fr in zip(out_k, out_p, wavs, frames):
+                peak = float(np.abs(xx).max())
+                core = slice(nfft, min(len(xx), (fr - 1) * hop + nfft) - nfft)
+                wave_err = max(wave_err, float(np.abs(sk_ - sp_)[core].max()) / peak)
+                part_err = max(part_err, float(np.abs(sk_ + nk_ - xx)[core].max()) / peak)
+            log(f"phase 9: {name}, {body} frozen chain, kernel vs plain: run_mcem max mask "
+                f"diff {mask_err:.3e} (limit 1e-3), max cost rel diff {cost_err:.3e} (limit "
+                f"1e-4), |WFs + WFn - 1| <= {part:.3e} (limit 1e-5); enhance_batch max |s_k - "
+                f"s_p| / peak {wave_err:.3e} (limit 1e-3), Wiener partition max |s + n - x| / "
+                f"peak {part_err:.3e} (limit 1e-4)")
+            check(wave_err < 1e-3 and part_err < 1e-4,
+                  f"{name} {body} frozen enhance_batch: kernel vs plain, partition")
+
+    # ---- 9d. times
+    def walls(fn, n=3):
+        out = []
+        for _ in range(n):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    for name, (enh, ys) in models.items():
+        w = walls(lambda: enh.enhance_batch(wavs, ys, seed=SEED))
+        med = float(np.median(w))
+        # host work that labels add: _prepare pads them into the wire
+        # array beside the waveforms and masks, and the array is uploaded
+        prep = walls(lambda: enh._prepare(wavs, ys, None)[3].to(dev), 5)
+        log(f"phase 9: enhance_batch B={B} {name} (labels given) wall "
+            f"{', '.join(f'{t:.4f}' for t in w)} s (median {med:.4f} s, {B / med:.2f} utt/s; "
+            f"M1 in phase 4 {m1_wall:.4f} s, ratio {med / m1_wall:.4f}); host _prepare of the "
+            f"batch with its labels and the labels' upload {1e3 * float(np.median(prep)):.3f} "
+            f"ms (median of 5) {tag}")
+    w = walls(label_v5, 5)
+    log(f"phase 9: self-soft labeling of the batch (B2 launch, classifier on "
+        f"{sum(frames)} frames, copy back) wall {', '.join(f'{1e3 * t:.3f}' for t in w)} ms "
+        f"(median {1e3 * float(np.median(w)):.3f} ms) {tag}")
+
+    x2b, z0b, maskb, yb = inputs["M2-info self-soft"]
+    b, n_pad = maskb.shape
+    rows = b * n_pad
+    w_, h_, g_ = init_nmf(torch.Generator(device=dev).manual_seed(SEED), b, n_pad, f,
+                          mc.nmf_rank, mc.eps, device=dev)
+    vb_r = compute_vb(w_, h_).reshape(rows, f).contiguous()
+    g_r, x2_r, z_r = g_.reshape(rows).contiguous(), x2b.reshape(rows, f), z0b.reshape(rows, l)
+    cm = fold_conditioning(enh_v5.mats, yb.reshape(rows, -1), True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    n_burn, n_samp = mc.burnin_e_step, mc.nsamples_e_step
+    noise = make_chain_noise(n_burn + n_samp, rows, l, gen, dev)
+    args = (cm, x2_r, vb_r, g_r, z_r.contiguous(), None, noise, n_burn, n_samp, mc.var_rw,
+            False, True)
+    k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
+    p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
+    h1, h2 = cm[0].shape[1], cm[3].shape[1]
+    work = chain_work(rows, f, l, h1, h2, n_burn, n_samp, False)
+    work = (*work[:3], work[3] + 4 * rows * h1)  # plus the row bias, read once
+    b_ms, b_by = chain_bound_ms(work, True)
+    fargs = (*args[:9], 0.0, False, True)
+    _, sk = run_mh_chain(*fargs)
+    _, sr = mh_chain_reference(*fargs)
+    sync()
+    max_abs = float((sk - sr).abs().max())
+    said = agree(sk, sr, True, 1e-5, "conditioned frozen segment at main-path shape")
+    _, ibm_y = inputs["M2 IBM"][2:]
+    fold_ms = cuda_ms(lambda: fold_conditioning(enh_ibm.mats, ibm_y.reshape(rows, -1), True),
+                      reps=20, warm=2)
+    log(f"phase 9: mh_chain bf16 body, conditioned E-step segment (row bias (rows, {h1})) "
+        f"rows={rows} steps={n_burn}+{n_samp}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms by {b_by} ({work[3] / 1e6:.1f} MB with the row bias), kernel at "
+        f"{100 * b_ms / k_ms:.2f}% of bound; frozen segment kernel vs plain: max abs err "
+        f"{max_abs:.3e}, {said}; the IBM fold (y_dim 513, once per batch) {fold_ms:.4f} ms {tag}")
+
+    t_max = max(len(x) for x in wavs)
+    batch = np.stack([np.pad(x, (0, t_max - len(x))) for x in wavs]).astype(np.float32)
+    xp = pad_signal(torch.from_numpy(batch).to(dev), stft_cfg).contiguous()
+    stft_entry = time_stft(xp, False, "self-soft labels", n_stft, cuda_ms, tag, phase=9)
+    chain_entry = {"name": "mh_chain (conditioned)", "route": "cuda",
+                   "source": "dvae_tpu_torch/csrc/mh_chain.cu",
+                   "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": n_v5_mma,
+                   "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None}
+    return [chain_entry, stft_entry]
 
 
 def main() -> int:
@@ -666,7 +908,7 @@ def main() -> int:
           "finite outputs, f32 body")
 
     # the padded batch as the main path sees it, for the comparisons and times
-    xw, x_scale, mask, n_pad, frames = enh._prepare(wavs, None)
+    xw, x_scale, mask, _, n_pad, frames = enh._prepare(wavs, None, None)
     with torch.inference_mode():
         x = xw.to(dev).float() * x_scale.to(dev)[:, None]
         re, im = stft_realimag(x, cfg.stft)
@@ -805,6 +1047,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
         stft_entries = training_phases(work, wavs, cuda_ms, tag)
 
+    cleans = [c for c, _ in synthetic_parts(np.random.default_rng(SEED), B)]  # wavs' clean parts
+    cond_entries = conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag, wall)
+
     def chain_entry(name, fast, n):
         k_ms, p_ms, b_ms, b_by = times[fast, False]  # the E-step segment
         return {"name": name, "route": "cuda", "source": "dvae_tpu_torch/csrc/mh_chain.cu",
@@ -814,7 +1059,7 @@ def main() -> int:
 
     log(json.dumps({"kernels": [chain_entry("mh_chain", True, launches_mma),
                                 chain_entry("mh_chain_f32", False, launches_f32),
-                                *stft_entries]}))
+                                *stft_entries, *cond_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dvae_tpu_torch.enhance.mh_chain import make_chain_noise, run_mh_chain
+from dvae_tpu_torch.enhance.mh_chain import fold_conditioning, make_chain_noise, run_mh_chain
 from dvae_tpu_torch.enhance.nmf import VX_FLOOR, compute_vb, init_nmf, nmf_m_step
 
 
@@ -98,7 +98,8 @@ def run_mcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
         z_init: (B, N, L) initial latents (the encoder posterior mean).
         mask: (B, N) 1.0 for valid frames.
         seed: integer seed of the three random streams.
-        y: optional (B, N, Y) conditioning labels.
+        y: optional (B, N, Y) conditioning labels, folded into the
+            decoder's first-layer row bias once for the run.
         nmf_init: optional (W, H, g) replacing the random NMF init.
     The device is that of ``x2``: CUDA runs the chain kernel, CPU the plain
     chain.
@@ -118,7 +119,8 @@ def run_mcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
     else:
         w, h, g = (t.to(dev, torch.float32) for t in nmf_init)
     x2_r = x2.reshape(b * n, f)
-    y_r = None if y is None else y.reshape(b * n, -1)
+    mats = fold_conditioning(mats, None if y is None else y.reshape(b * n, -1),
+                             cfg.fast_decoder)
     denom = torch.clamp(mask.sum() * f, min=1.0)
 
     def chain(z, w, h, g, gen, wf_mode):
@@ -129,7 +131,7 @@ def run_mcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
         return run_mh_chain(
             mats, x2_r, vb.reshape(b * n, f).contiguous(),
             g.reshape(b * n).contiguous(), z.reshape(b * n, l).contiguous(),
-            y_r, noise, n_burn, n_samp, cfg.var_rw, wf_mode=wf_mode,
+            None, noise, n_burn, n_samp, cfg.var_rw, wf_mode=wf_mode,
             fast_decoder=cfg.fast_decoder)
 
     z = z_init.to(torch.float32)

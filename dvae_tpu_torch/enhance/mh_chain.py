@@ -45,13 +45,27 @@ launches = 0
 launches_mma = 0
 
 
+def _find_decoder(module):
+    """The first submodule named ``decoder``: this level first, then each
+    child's subtree in order (``model.decoder``, or
+    ``model.enc_dec_clf.decoder`` for the disentangled VAE)."""
+    children = dict(module.named_children())
+    if "decoder" in children:
+        return children["decoder"]
+    for child in children.values():
+        hit = _find_decoder(child)
+        if hit is not None:
+            return hit
+    return None
+
+
 def extract_decoder_mlp(model, z_dim: int):
     """The decoder's dense weights as ``(w1z, w1y, b1, w2, b2, w3, b3)``,
     each (in, out) f32 and contiguous; ``w1y`` is the conditioning block of
-    the first layer (None for M1). None when the decoder is not the
-    two-hidden-layer MLP the kernel supports."""
-    dec = model.decoder
-    if len(dec.hidden) != 2:
+    the first layer (None for M1). None when the model has no decoder or
+    it is not the two-hidden-layer MLP the kernel supports."""
+    dec = _find_decoder(model)
+    if dec is None or len(getattr(dec, "hidden", ())) != 2:
         return None
     l1, l2 = dec.hidden
     w1 = l1.weight.detach().t().float()
@@ -101,6 +115,19 @@ def _fold_bias(mats, y, rows, fast_decoder=False):
     return (b1 + y.float() @ w1y).contiguous()
 
 
+def fold_conditioning(mats, y, fast_decoder: bool = False):
+    """``mats`` with the conditioning ``y`` (rows, Y) folded into a
+    per-row first-layer bias (rows, H1) by :func:`_fold_bias`, and no
+    conditioning block left: a chain run on the result needs no ``y``.
+    MCEM folds once per run, since its labels are fixed for the run.
+    ``y=None`` returns ``mats`` after the mismatch check."""
+    if y is None:
+        _fold_bias(mats, None, 0)
+        return mats
+    by = _fold_bias(mats, y, y.shape[0], fast_decoder)
+    return (mats[0], None, by, *mats[3:])
+
+
 def _check(x2, vb, g, z, noise, mats, n_burn, n_samples):
     rows, f = x2.shape
     l = z.shape[-1]
@@ -109,8 +136,9 @@ def _check(x2, vb, g, z, noise, mats, n_burn, n_samples):
     want = {
         "x2": (x2, (rows, f)), "vb": (vb, (rows, f)), "g": (g, (rows,)),
         "z": (z, (rows, l)), "noise": (noise, (n_burn + n_samples, rows, l + 1)),
-        "w1z": (w1z, (l, h1)), "b1": (b1, (h1,)), "w2": (w2, (h1, h2)),
-        "b2": (b2, (h2,)), "w3": (w3, (h2, f)), "b3": (b3, (f,)),
+        # b1 is shared by every row, or a row bias from fold_conditioning
+        "w1z": (w1z, (l, h1)), "b1": (b1, (rows, h1) if b1.dim() == 2 else (h1,)),
+        "w2": (w2, (h1, h2)), "b2": (b2, (h2,)), "w3": (w3, (h2, f)), "b3": (b3, (f,)),
     }
     dev = x2.device
     for name, (t, shape) in want.items():

@@ -2,12 +2,14 @@
 out (port of ``dvae_tpu.enhance.pipeline``).
 
   device (one batch):
-      PCM16 wire decode -> STFT (matmul DFT) -> |X|^2 -> encoder mean ->
-      MCEM (chain kernel + NMF M-steps) -> Wiener masks -> S_hat = WFs*X
-      -> batched mask-normalized ISTFT -> (B, T) waveforms
+      PCM16 wire decode -> STFT (matmul DFT) -> |X|^2 -> encoder mean
+      (of [|X|^2; y] for ``y_mode="enc_dec"``) -> MCEM (chain kernel with
+      the labels folded into its row bias, NMF M-steps) -> Wiener masks
+      -> S_hat = WFs*X -> batched mask-normalized ISTFT -> (B, T) waveforms
   host:
-      ragged padding to 64-frame buckets, frame masks, per-utterance length
-      finalisation and the Wiener-partition noise estimate N_hat = X - S_hat
+      ragged padding to 64-frame buckets, frame masks and zero-padded
+      labels, per-utterance length finalisation and the Wiener-partition
+      noise estimate N_hat = X - S_hat
 
 CUDA work is asynchronous, so :meth:`Enhancer.dispatch` returns once the
 batch is enqueued and :meth:`Enhancer.collect` blocks on the copy back.
@@ -52,11 +54,14 @@ def _quantize_pcm16(x: torch.Tensor):
 
 @dataclasses.dataclass(frozen=True)
 class EnhancerConfig:
-    """Same fields as the JAX package's config. This port serves
-    ``y_mode="none"``, ``engine="mcem"``, ``ablation="none"`` and
-    ``aot_dir=None``; other values raise NotImplementedError. ``norm`` is
-    the (mean, std) train statistics of a model trained with std_norm: the
-    encoder then sees (|X|^2 - mean) / (std + norm_eps)."""
+    """Same fields as the JAX package's config. This port serves every
+    ``y_mode``: ``"none"`` (M1), ``"enc_dec"`` (M2's ``CVAE``, whose
+    encoder sees ``[x; y]``) and ``"dec_only"`` (``CVAE_v2``-``v4`` and
+    ``DisentangledVAE``); it serves ``engine="mcem"``, ``ablation="none"``
+    and ``aot_dir=None``, and other values raise NotImplementedError.
+    ``norm`` is the (mean, std) train statistics of a model trained with
+    std_norm: the encoder then sees (|X|^2 - mean) / (std + norm_eps), with
+    y concatenated after."""
 
     stft: StftConfig = StftConfig()
     mcem: McemConfig = McemConfig()
@@ -76,8 +81,10 @@ class EnhancerConfig:
 
 
 class Enhancer:
-    """Binds an M1 :class:`~dvae_tpu_torch.models.VAE` to the enhancement
-    program on ``device`` (CUDA unless ``device="cpu"`` is passed)."""
+    """Binds a model of any family (:class:`~dvae_tpu_torch.models.VAE`,
+    the ``CVAE`` family or ``DisentangledVAE``; ``cfg.y_mode`` must match
+    it) to the enhancement program on ``device`` (CUDA unless
+    ``device="cpu"`` is passed)."""
 
     def __init__(self, model, cfg: EnhancerConfig = EnhancerConfig(), mesh=None,
                  device=None):
@@ -90,7 +97,7 @@ class Enhancer:
         if cfg.engine not in ("mcem", "peem", "peem-wf", "pmcem"):
             raise ValueError(f"bad engine {cfg.engine!r}")
         for name, value, served, item in (
-                ("y_mode", cfg.y_mode, "none", 9), ("engine", cfg.engine, "mcem", 10),
+                ("engine", cfg.engine, "mcem", 10),
                 ("ablation", cfg.ablation, "none", 10),
                 ("aot_dir", cfg.aot_dir, None, 11), ("mesh", mesh, None, 14)):
             if value != served:
@@ -123,7 +130,7 @@ class Enhancer:
 
     # -- device program ------------------------------------------------------
     @torch.inference_mode()
-    def _core(self, xw, x_scale, mask, seed: int, n_frames: int):
+    def _core(self, xw, x_scale, mask, y, seed: int, n_frames: int):
         cfg = self.cfg
         x = xw.to(torch.float32) * x_scale[:, None]
         re, im = stft_realimag(x, cfg.stft)
@@ -133,8 +140,10 @@ class Enhancer:
         if self._norm is not None:  # the encoder input only; MCEM sees raw x2
             mean, std = self._norm
             enc_in = (x2 - mean) / (std + cfg.norm_eps)
+        if cfg.y_mode == "enc_dec":
+            enc_in = torch.cat([enc_in, y], -1)
         _, z0, _ = self.model.encode(enc_in, sample=False)
-        res = run_mcem(self.mats, x2, z0, mask, seed, cfg.mcem)
+        res = run_mcem(self.mats, x2, z0, mask, seed, cfg.mcem, y=y)
         s = istft_realimag_masked(res.wfs * re, res.wfs * im, mask, cfg.stft)
         n = None
         if not cfg.noise_from_partition:
@@ -150,9 +159,11 @@ class Enhancer:
         return s, s_scale, n, n_scale, res.cost
 
     # -- host orchestration ----------------------------------------------------
-    def _prepare(self, wavs, max_frames):
-        """Pad/bucket the wavs into the wire arrays. Returns (xw, x_scale,
-        mask, n_pad, frames) as CPU tensors / ints."""
+    def _prepare(self, wavs, ys, max_frames):
+        """Pad/bucket the wavs (and labels) into the wire arrays. Returns
+        (xw, x_scale, mask, y, n_pad, frames) as CPU tensors / ints; ``y``
+        is (B, n_pad, Y), each utterance's labels cut at its frame count and
+        zero beyond, or None for ``y_mode="none"``."""
         cfg = self.cfg
         b = len(wavs)
         frames = [n_stft_frames_clamped(len(w), cfg.stft) for w in wavs]
@@ -172,13 +183,24 @@ class Enhancer:
         mask = torch.zeros((b, n_pad))
         for i in range(b):
             mask[i, :frames[i]] = 1.0
-        return xw, x_scale, mask, n_pad, frames
+        y = None
+        if cfg.y_mode != "none":
+            if ys is None:
+                raise ValueError(f"y_mode={cfg.y_mode} requires labels")
+            y = np.zeros((b, n_pad, np.asarray(ys[0]).shape[-1]), np.float32)
+            for i, yi in enumerate(ys):
+                yi = np.asarray(yi, np.float32)
+                n = min(len(yi), frames[i])
+                y[i, :n] = yi[:n]
+            y = torch.from_numpy(y)
+        return xw, x_scale, mask, y, n_pad, frames
 
-    def _dispatch(self, wavs, seed, max_frames):
+    def _dispatch(self, wavs, ys, seed, max_frames):
         """Pad + upload one batch and enqueue its device work (async)."""
-        xw, x_scale, mask, n_pad, frames = self._prepare(wavs, max_frames)
+        xw, x_scale, mask, y, n_pad, frames = self._prepare(wavs, ys, max_frames)
         dev = self.device
         out_dev = self._core(xw.to(dev), x_scale.to(dev), mask.to(dev),
+                             None if y is None else y.to(dev),
                              0 if seed is None else seed, n_pad)
         lengths = [len(w) for w in wavs]
         if self.cfg.noise_from_partition:
@@ -212,20 +234,23 @@ class Enhancer:
         self.last_cost = cost.cpu().numpy()
         return out
 
-    def enhance_batch(self, wavs: Sequence[np.ndarray], seed: int | None = None,
+    def enhance_batch(self, wavs: Sequence[np.ndarray],
+                      ys: Sequence[np.ndarray] | None = None, seed: int | None = None,
                       max_frames: Sequence[int] | None = None):
         """Enhance a batch of (possibly ragged) utterances.
 
         Args:
             wavs: float waveforms at ``cfg.stft.fs``.
+            ys: per-utterance (n_frames, y_dim) labels, required unless
+                ``cfg.y_mode == "none"``.
             seed: integer seed of the MCEM random streams (default 0).
             max_frames: optional per-utterance frame cap.
         Returns:
             list of (s_hat, n_hat) float32 waveforms, each ``len(wavs[i])``.
         """
-        return self.collect(self.dispatch(wavs, seed, max_frames))
+        return self.collect(self.dispatch(wavs, ys, seed, max_frames))
 
-    def dispatch(self, wavs, seed: int | None = None, max_frames=None) -> list:
+    def dispatch(self, wavs, ys=None, seed: int | None = None, max_frames=None) -> list:
         """The asynchronous half of :meth:`enhance_batch`: enqueue the work
         (split at ``max_device_batch``) and return a handle for
         :meth:`collect`."""
@@ -233,9 +258,9 @@ class Enhancer:
         if len(wavs) == 0:
             return []
         if len(wavs) <= mdb:
-            return [self._dispatch(wavs, seed, max_frames)]
+            return [self._dispatch(wavs, ys, seed, max_frames)]
         seed = 0 if seed is None else seed
-        return [self._dispatch(wavs[a:a + mdb], fold_seed(seed, j),
+        return [self._dispatch(wavs[a:a + mdb], _slice(ys, a, a + mdb), fold_seed(seed, j),
                                _slice(max_frames, a, a + mdb))
                 for j, a in enumerate(range(0, len(wavs), mdb))]
 
@@ -248,7 +273,8 @@ class Enhancer:
 
     def enhance_stream(self, batches, seed: int | None = None):
         """Pipelined enhancement over an iterable of ``(wavs, ys, max_frames)``
-        batches (``ys`` must be None in this port). Up to
+        batches (``ys`` None for ``y_mode="none"``; a fourth ``clean_wavs``
+        element, for the clean-z ablations, raises). Up to
         ``pipeline_depth + 1`` batches are in flight; yields one result list
         per input batch, in order."""
         seed = 0 if seed is None else seed
@@ -258,14 +284,15 @@ class Enhancer:
         def sub_batches():
             for i, tup in enumerate(batches):
                 wavs, ys, max_frames = tup[:3]
-                if ys is not None or len(tup) > 3:
-                    raise NotImplementedError("labels / clean wavs: " + _LATER.format(9))
+                if len(tup) > 3:
+                    raise NotImplementedError("clean wavs (the clean-z ablations): "
+                                              + _LATER.format(10))
                 if len(wavs) == 0:
-                    yield i, 0, True, None, None  # keeps one yield per batch
+                    yield i, 0, True, None, None, None  # keeps one yield per batch
                     continue
                 for j, a in enumerate(range(0, len(wavs), mdb)):
                     yield (i, j, a + mdb >= len(wavs), wavs[a:a + mdb],
-                           _slice(max_frames, a, a + mdb))
+                           _slice(ys, a, a + mdb), _slice(max_frames, a, a + mdb))
 
         acc = []
         pending = collections.deque()  # (handle_or_None, last)
@@ -279,9 +306,9 @@ class Enhancer:
                 return out
             return None
 
-        for i, j, last, wavs, max_frames in sub_batches():
+        for i, j, last, wavs, ys, max_frames in sub_batches():
             handle = None if wavs is None else self._dispatch(
-                wavs, fold_seed(fold_seed(seed, i), j), max_frames)
+                wavs, ys, fold_seed(fold_seed(seed, i), j), max_frames)
             pending.append((handle, last))
             if len(pending) > depth:
                 out = emit(*pending.popleft())

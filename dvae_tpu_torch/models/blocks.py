@@ -3,8 +3,9 @@
 
 Parameter names are the reference's ``state_dict`` names: hidden layers sit
 in a ``ModuleList`` (``hidden.0``, ``hidden.1``, ...), the Gaussian heads are
-``sample.mu`` / ``sample.log_var`` and the decoder output is
-``reconstruction``. Hidden MLPs use tanh; the decoder ends in ``exp`` (a
+``sample.mu`` / ``sample.log_var``, the decoder output is
+``reconstruction`` and a classifier's head is ``output_layer``. Encoder and
+decoder MLPs use tanh, classifiers relu; the decoder ends in ``exp`` (a
 variance spectrogram); every Linear is Xavier-normal with zero bias.
 """
 
@@ -84,3 +85,51 @@ class Decoder(nn.Module):
 
     def forward(self, z):
         return torch.exp(self.reconstruction(self.hidden(z)))
+
+
+class _ReluMLP(nn.Module):
+    """``hidden.{i}`` Linear layers with relu after each, then the Linear
+    head ``output_layer``: the classifiers' shared body."""
+
+    def __init__(self, in_features: int, hidden: Sequence[int], out_features: int):
+        super().__init__()
+        dims = [in_features, *hidden]
+        self.hidden = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.output_layer = nn.Linear(dims[-1], out_features)
+
+    def logits(self, x):
+        for layer in self.hidden:
+            x = torch.relu(layer(x))
+        return self.output_layer(x)
+
+
+class Classifier(_ReluMLP):
+    """relu MLP -> Linear -> sigmoid (per-label Bernoulli probabilities).
+
+    ``batch_norm=True`` (the reference's interleaved BatchNorm1d blocks) is
+    not ported: no trainer enables it, and ``convert.state_dict_from_jax``
+    cannot name BatchNorm leaves."""
+
+    def __init__(self, in_features: int, hidden: Sequence[int], y_dim: int,
+                 batch_norm: bool = False):
+        if batch_norm:
+            raise NotImplementedError(
+                "Classifier(batch_norm=True) is not served by this port yet "
+                "(a later PR, ROADMAP queue A16)")
+        super().__init__(in_features, hidden, y_dim)
+
+    def forward(self, x):
+        return torch.sigmoid(self.logits(x))
+
+
+class Classifier2Classes(_ReluMLP):
+    """relu MLP -> Linear(2 * y_dim) -> softmax over a 2-class axis.
+    Returns shape (..., 2, y_dim)."""
+
+    def __init__(self, in_features: int, hidden: Sequence[int], y_dim: int):
+        super().__init__(in_features, hidden, 2 * y_dim)
+        self.y_dim = y_dim
+
+    def forward(self, x):
+        logits = self.logits(x)
+        return torch.softmax(logits.reshape(*logits.shape[:-1], 2, self.y_dim), dim=-2)

@@ -181,6 +181,49 @@ def test_cuda_tensors_never_take_the_plain_chain(cuda, monkeypatch, fast):
     assert s.shape == (2, 64, F) and torch.isfinite(s).all()
 
 
+@pytest.mark.cuda
+@PRECISIONS
+@pytest.mark.parametrize("family", ["v5-self-soft", "m2-ibm"])
+def test_cuda_conditioned_enhancer_frozen_matches_plain(cuda, monkeypatch, fast, family):
+    """The conditioned Enhancer (DisentangledVAE, dec_only, self-soft labels
+    from one STFT power launch; CVAE, enc_dec, binary labels at y_dim 513)
+    with a frozen chain, through the kernel and through the plain chain:
+    enhanced waveforms within 1e-3 of the peak and s + n = x within 1e-4 of
+    it, away from the ISTFT's edges (chip_smoke.py phase 3's limits)."""
+    from dvae_tpu_torch.enhance import mcem
+    from dvae_tpu_torch.enhance.labeling import self_soft_labels
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import CVAE, DisentangledVAE
+    from dvae_tpu_torch.ops.stft import n_stft_frames_clamped
+
+    rng = np.random.default_rng(8)
+    ws = [(0.3 * rng.standard_normal(n)).astype(np.float32) for n in (16000, 9000, 12345)]
+    if family == "v5-self-soft":
+        model, y_mode = DisentangledVAE(F, 1, L, (128, 128)).to(cuda), "dec_only"
+        before = stft_power.launches
+        ys = self_soft_labels(model, ws, StftConfig(), 1, "classify_from_x")
+        assert stft_power.launches == before + 1
+    else:
+        model, y_mode = CVAE(F, 513, L, (128, 128)), "enc_dec"
+        ys = [(rng.uniform(size=(n_stft_frames_clamped(len(w), StftConfig()), 513)) > 0.5)
+              .astype(np.float32) for w in ws]
+    frozen = McemConfig(niter=3, nsamples_e_step=2, burnin_e_step=2, nsamples_wf=2,
+                        burnin_wf=2, var_rw=0.0, fast_decoder=fast)
+    enh = Enhancer(model, EnhancerConfig(mcem=frozen, y_mode=y_mode, wire_dtype="float32"))
+    before = mh_chain.launches
+    out_k = enh.enhance_batch(ws, ys, seed=1)
+    assert mh_chain.launches == before + frozen.niter + 1
+    monkeypatch.setattr(mcem, "run_mh_chain", mh_chain_reference)
+    out_p = enh.enhance_batch(ws, ys, seed=1)
+    assert mh_chain.launches == before + frozen.niter + 1
+    nfft = StftConfig().nfft
+    for (sk, nk), (sp, _), x in zip(out_k, out_p, ws):
+        peak, core = np.abs(x).max(), slice(nfft, len(x) - 2 * nfft)
+        assert np.isfinite(sk).all() and np.isfinite(nk).all()
+        assert np.abs(sk - sp)[core].max() < 1e-3 * peak
+        assert np.abs(sk + nk - x)[core].max() < 1e-4 * peak
+
+
 def _quirk_length():
     """A multiple of hop at which the end-pad quirk still adds a hop."""
     return next(n for n in range(256 * 40, 256 * 120, 256)

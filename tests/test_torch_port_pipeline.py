@@ -124,7 +124,7 @@ def test_default_device_without_cuda_raises(models):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("y_mode", "enc_dec"), ("engine", "peem"), ("ablation", "clean_z"),
+    ("ablation", "clean_z_nomcem"), ("engine", "peem"), ("ablation", "clean_z"),
     ("aot_dir", "/nonexistent")])
 def test_unserved_config_values_raise(models, field, value):
     with pytest.raises(NotImplementedError, match="later PR"):
