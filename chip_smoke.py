@@ -59,7 +59,25 @@ Phases, in order; any failure exits non-zero:
    both ``enhance_batch`` walls beside phase 4's M1, the labeling, the
    conditioned E-step segment with its bound, the y_dim 513 fold, and the
    STFT power kernel at the labeling launch (as in phase 8), each with the
-   card's name and power limit.
+   card's name and power limit;
+10. every E-step engine and ablation beside mcem on the phase-3 M1 model and
+   batch at the full budget: ``pmcem`` (its R chains the R x 10,240 rows of
+   one segment: niter E-step and one WF launch at those rows), ``peem`` (no
+   launch), ``peem-wf`` (one WF launch), the ``clean_z`` ablation (niter +
+   1) and ``clean_z_nomcem`` (none), each with its launches and segment rows
+   asserted, finite outputs and the Wiener partition; M2-info ``pmcem`` with
+   self-soft labels; frozen ``pmcem`` and ``peem-wf`` through the kernel and
+   the plain chain with phase 3's limits; then times: each engine's
+   ``enhance_batch`` beside phase 4's mcem, PEEM's Adam loop, and the
+   pmcem E-step / WF and peem-wf WF segments (CUDA events) with their
+   bounds; last, the NTCD sweep CLIs on a synthetic tree of 16 clean
+   utterances (32 mixtures) under ``build/``: ``evaluate_ntcd_m1`` writes
+   the reference layout and resumes by skipping, ``--ablation
+   clean-z-nomcem`` writes the golden names, ``--shard 0/2`` and ``1/2``
+   cover the list once, and ``evaluate_ntcd_m2_info_vad --y-source
+   self-soft --engine pmcem`` runs one STFT power launch per utterance;
+   then a short ``run_peem`` under ``torch.profiler`` gives PEEM's device
+   time against its wall time.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -71,6 +89,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -194,6 +213,17 @@ def log_err(got, p):
     peak power (limit 1e-3)."""
     big = p > 1e-6 * p.amax()
     return float((got[big] - (p[big] + 1e-12).log()).abs().max())
+
+
+def frozen_agreement(rk, rp, mask):
+    """A frozen run through the kernel (``rk``) against the plain chain
+    (``rp``): the largest mask difference, the largest relative cost
+    difference and the largest |WFs + WFn - 1| on valid frames (phase 3's
+    limits: 1e-3, 1e-4, 1e-5)."""
+    mask_err = max(float((rk.wfs - rp.wfs).abs().max()), float((rk.wfn - rp.wfn).abs().max()))
+    cost_err = float(((rk.cost - rp.cost).abs() / rp.cost.abs().clamp_min(1e-30)).max())
+    part = float(((rk.wfs + rk.wfn - 1.0).abs() * mask[:, :, None]).max())
+    return mask_err, cost_err, part
 
 
 def host_call_ms(fn, reps=200):
@@ -621,7 +651,7 @@ def conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag: str,
 
     # ---- 9c. frozen chain, kernel vs plain, both bodies, both models
     def batch_inputs(enh, ys):
-        xw, x_scale, mask, y, n_pad, _ = enh._prepare(wavs, ys, None)
+        xw, x_scale, _, _, mask, y, n_pad, _ = enh._prepare(wavs, ys, None)
         with torch.inference_mode():
             x = xw.to(dev).float() * x_scale.to(dev)[:, None]
             re, im = stft_realimag(x, stft_cfg)
@@ -645,10 +675,7 @@ def conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag: str,
                 with plain_chain():
                     rp = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen, y=yb)
             sync()
-            mask_err = max(float((rk.wfs - rp.wfs).abs().max()),
-                           float((rk.wfn - rp.wfn).abs().max()))
-            cost_err = float(((rk.cost - rp.cost).abs() / rp.cost.abs().clamp_min(1e-30)).max())
-            part = float(((rk.wfs + rk.wfn - 1.0).abs() * maskb[:, :, None]).max())
+            mask_err, cost_err, part = frozen_agreement(rk, rp, maskb)
             check(mask_err < 1e-3 and cost_err < 1e-4 and part < 1e-5,
                   f"{name} {body} frozen run_mcem: kernel vs plain")
             fcfg = EnhancerConfig(mcem=frozen, y_mode=enh.cfg.y_mode,
@@ -686,7 +713,7 @@ def conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag: str,
         med = float(np.median(w))
         # host work that labels add: _prepare pads them into the wire
         # array beside the waveforms and masks, and the array is uploaded
-        prep = walls(lambda: enh._prepare(wavs, ys, None)[3].to(dev), 5)
+        prep = walls(lambda: enh._prepare(wavs, ys, None)[5].to(dev), 5)
         log(f"phase 9: enhance_batch B={B} {name} (labels given) wall "
             f"{', '.join(f'{t:.4f}' for t in w)} s (median {med:.4f} s, {B / med:.2f} utt/s; "
             f"M1 in phase 4 {m1_wall:.4f} s, ratio {med / m1_wall:.4f}); host _prepare of the "
@@ -741,6 +768,303 @@ def conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag: str,
                    "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                    "bound_by": b_by, "library_ms": None}
     return [chain_entry, stft_entry]
+
+
+def sweep_tree(root: str, count: int, seed: int):
+    """A processed NTCD-TIMIT tree of ``count`` synthetic clean utterances
+    (1-6 s) under ``<root>/data/subset/processed/ntcd_timit``: clean wavs
+    and zero-byte label-h5 markers (the catalog only globs their names) in
+    ``Clean/test/<spk>/``, and their mixtures on the subset grid (Babble and
+    LR at -5 dB) in ``Noisy/``. Returns the noisy utterances' relative
+    paths."""
+    from dvae_tpu_torch.data.io import write_wav
+
+    rng = np.random.default_rng(seed)
+    proc = os.path.join(root, "data", "subset", "processed")
+    noisy = []
+    for i in range(count):
+        spk, utt = f"spk{i % 4:02d}", f"sx{i:03d}"
+        n = int(rng.uniform(1.0, 6.0) * FS)
+        t = np.arange(n) / FS
+        phase = 2 * np.pi * np.cumsum(110 + 60 * rng.random() + 20 * np.sin(np.pi * t)) / FS
+        clean = 0.2 * sum(np.sin(k * phase) / k for k in range(1, 12)) * (0.5 + 0.5 * np.sin(
+            2 * np.pi * 2 * t) ** 2)
+        d = os.path.join(proc, "ntcd_timit", "Clean", "test", spk)
+        os.makedirs(d, exist_ok=True)
+        write_wav(os.path.join(d, f"{utt}.wav"), clean, FS)
+        open(os.path.join(d, f"{utt}_vad_labels_upsampled.h5"), "wb").close()
+        for noise in ("Babble", "LR"):
+            rel = os.path.join("ntcd_timit", "Noisy", noise, "-5", "test", spk, f"{utt}.wav")
+            os.makedirs(os.path.dirname(os.path.join(proc, rel)), exist_ok=True)
+            write_wav(os.path.join(proc, rel), clean + rng.standard_normal(n) * 0.1, FS)
+            noisy.append(rel)
+    return sorted(noisy)
+
+
+def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, tag: str,
+                  m1_wall: float, work: str) -> list:
+    """Phase 10 on the card: every E-step engine and ablation beside mcem at
+    full width on the phase-3 batch (``wavs``, mixtures of ``cleans``) and
+    the budget ``mc``; ``batch`` is the phase-3 batch as the engines see it
+    (x2, z0, mask). Returns the kernels-line entries of these paths."""
+    import torch
+
+    from dvae_tpu_torch.cli import evaluate_ntcd_m1, evaluate_ntcd_m2_info_vad
+    from dvae_tpu_torch.enhance import mcem, mh_chain
+    from dvae_tpu_torch.enhance.labeling import self_soft_labels
+    from dvae_tpu_torch.enhance.mcem import run_peem, run_peem_wf, run_pmcem
+    from dvae_tpu_torch.enhance.mh_chain import (
+        extract_decoder_mlp,
+        make_chain_noise,
+        mh_chain_reference,
+        run_mh_chain,
+    )
+    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import DisentangledVAE
+    from dvae_tpu_torch.models.blocks import init_xavier_
+    from dvae_tpu_torch.ops import stft_power
+    from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    x2b, z0b, maskb = batch
+    b, n_pad, f = x2b.shape
+    l = z0b.shape[-1]
+    rows, r = b * n_pad, mc.pmcem_chains
+    stft_cfg = StftConfig()
+    nfft, hop = stft_cfg.nfft, stft_cfg.hop
+    frames = [n_stft_frames_clamped(len(x), stft_cfg) for x in wavs]
+    mats = extract_decoder_mlp(model, l)
+
+    @contextlib.contextmanager
+    def chain_calls():
+        """The (rows, WF mode) of every chain segment the engines run: the
+        launches themselves are counted by the wrapper."""
+        seen, real = [], mcem.run_mh_chain
+
+        def spy(mats, x2, *args, **kw):
+            seen.append((x2.shape[0], kw["wf_mode"]))
+            return real(mats, x2, *args, **kw)
+
+        mcem.run_mh_chain = spy
+        try:
+            yield seen
+        finally:
+            mcem.run_mh_chain = real
+
+    # (EnhancerConfig fields, the chain segments the run must make)
+    runs = {
+        "pmcem": (dict(engine="pmcem"), [(r * rows, False)] * mc.niter + [(r * rows, True)]),
+        "peem": (dict(engine="peem"), []),
+        "peem-wf": (dict(engine="peem-wf"), [(rows, True)]),
+        "clean-z": (dict(ablation="clean_z"), [(rows, False)] * mc.niter + [(rows, True)]),
+        "clean-z-nomcem": (dict(ablation="clean_z_nomcem"), []),
+    }
+
+    def partition_err(out):
+        worst = 0.0
+        for (s, n_), x, fr in zip(out, wavs, frames):
+            core = slice(nfft, min(len(x), (fr - 1) * hop + nfft) - nfft)
+            worst = max(worst, float(np.abs(s + n_ - x)[core].max()) / float(np.abs(x).max()))
+        return worst
+
+    # ---- 10a. each engine and ablation once, counts from 0 around the path
+    pmcem_launches = 0
+    for name, (fields, want) in runs.items():
+        enh = Enhancer(model, EnhancerConfig(mcem=mc, wire_dtype="float32",
+                                             noise_from_partition=False, **fields))
+        mh_chain.launches = mh_chain.launches_mma = 0
+        with chain_calls() as seen:
+            out = enh.enhance_batch(wavs, seed=SEED, clean_wavs=cleans)
+        n_all, n_mma = mh_chain.launches, mh_chain.launches_mma
+        part = partition_err(out)
+        finite = all(np.isfinite(s).all() and np.isfinite(n_).all() and len(s) == len(x)
+                     for (s, n_), x in zip(out, wavs)) and np.isfinite(enh.last_cost).all()
+        log(f"phase 10: {name}: {n_all} mh_chain launches ({n_mma} of the bf16 body; "
+            f"expected {len(want)}), segments at {sorted(set(seen))} rows / WF mode; cost "
+            f"{enh.last_cost[0]:.5f} -> {enh.last_cost[-1]:.5f}; outputs finite: {finite}; "
+            f"Wiener partition max |s + n - x| / peak {part:.3e} (limit 1e-4)")
+        check(n_all == n_mma == len(want) and seen == want, f"{name}: chain launches")
+        check(finite and part < 1e-4, f"{name}: outputs finite, Wiener partition")
+        if name == "pmcem":
+            pmcem_launches = sum(not wf for _, wf in seen)
+
+    v5 = init_xavier_(DisentangledVAE(513, 1, 16, (128, 128)), torch.Generator().manual_seed(SEED))
+    enh_v5 = Enhancer(v5, EnhancerConfig(mcem=mc, y_mode="dec_only", engine="pmcem"))
+    mh_chain.launches = mh_chain.launches_mma = stft_power.launches = 0
+    with chain_calls() as seen:
+        ys = self_soft_labels(enh_v5.model, wavs, stft_cfg, 1, "classify_from_x")
+        out = enh_v5.enhance_batch(wavs, ys, seed=SEED)
+    log(f"phase 10: M2-info pmcem, self-soft labels: {stft_power.launches} stft_power launch, "
+        f"{mh_chain.launches} mh_chain launches ({mh_chain.launches_mma} bf16), segments at "
+        f"{sorted(set(seen))}; cost {enh_v5.last_cost[0]:.5f} -> {enh_v5.last_cost[-1]:.5f}")
+    check(stft_power.launches == 1 and mh_chain.launches == mc.niter + 1
+          and seen == runs["pmcem"][1], "M2-info pmcem launches")
+    check(all(np.isfinite(s).all() and np.isfinite(n_).all() for s, n_ in out)
+          and np.isfinite(enh_v5.last_cost).all(), "M2-info pmcem outputs finite")
+
+    # ---- 10b. frozen chains, kernel vs plain, at the main path's rows
+    frozen = dataclasses.replace(mc, var_rw=0.0, niter=5)
+    for name, fn in (("pmcem", run_pmcem), ("peem-wf", run_peem_wf)):
+        with torch.inference_mode():
+            rk = fn(mats, x2b, z0b, maskb, SEED, frozen)
+            with plain_chain():
+                rp = fn(mats, x2b, z0b, maskb, SEED, frozen)
+        sync()
+        mask_err, cost_err, part = frozen_agreement(rk, rp, maskb)
+        log(f"phase 10: {name} frozen, niter {frozen.niter}, kernel vs plain: max mask diff "
+            f"{mask_err:.3e} (limit 1e-3), max cost rel diff {cost_err:.3e} (limit 1e-4), "
+            f"|WFs + WFn - 1| <= {part:.3e} on valid frames (limit 1e-5)")
+        check(mask_err < 1e-3 and cost_err < 1e-4 and part < 1e-5,
+              f"{name} frozen: kernel vs plain")
+
+    # ---- 10c. times
+    def walls(fn, n=3):
+        out = []
+        for _ in range(n):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    medians = {}
+    for name, (fields, _) in runs.items():
+        enh = Enhancer(model, EnhancerConfig(mcem=mc, **fields))
+        w = walls(lambda: enh.enhance_batch(wavs, seed=SEED, clean_wavs=cleans))
+        medians[name] = med = float(np.median(w))
+        log(f"phase 10: enhance_batch B={B} {name} wall {', '.join(f'{t:.4f}' for t in w)} s "
+            f"(median {med:.4f} s, {B / med:.2f} utt/s; mcem in phase 4 {m1_wall:.4f} s, "
+            f"ratio {med / m1_wall:.4f}) {tag}")
+    with torch.inference_mode():
+        loop = [float(np.median(walls(lambda: run_peem(mats, x2b, z0b, maskb, SEED,
+                                                       dataclasses.replace(mc, peem_steps=k)))))
+                for k in (mc.peem_steps, 0)]
+    log(f"phase 10: run_peem at the full budget {loop[0]:.4f} s, with peem_steps=0 "
+        f"{loop[1]:.4f} s: the Adam loop takes {loop[0] - loop[1]:.4f} s, "
+        f"{100 * (loop[0] - loop[1]) / medians['peem']:.1f}% of peem's enhance_batch {tag}")
+
+    w_, h_, g_ = init_nmf(torch.Generator(device=dev).manual_seed(SEED), b, n_pad, f,
+                          mc.nmf_rank, mc.eps, device=dev)
+    vb_r = compute_vb(w_, h_).reshape(rows, f)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    h1, h2 = mats[0].shape[1], mats[3].shape[1]
+
+    def segment(rep, z, n_burn, n_samp, wf):
+        """A main-path segment at ``rep`` copies of the batch's rows: times,
+        bound and the frozen segment's kernel-vs-plain error."""
+        planes = (x2b.reshape(rows, f).repeat(rep, 1), vb_r.repeat(rep, 1),
+                  g_.reshape(rows).repeat(rep))
+        rr = rep * rows
+        noise = make_chain_noise(n_burn + n_samp, rr, l, gen, dev)
+        args = (mats, *planes, z.reshape(rr, l).contiguous(), None, noise, n_burn, n_samp,
+                mc.var_rw, wf, True)
+        k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
+        p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
+        b_ms, b_by = chain_bound_ms(chain_work(rr, f, l, h1, h2, n_burn, n_samp, wf), True)
+        fargs = (*args[:9], 0.0, wf, True)
+        got, ref = run_mh_chain(*fargs)[1], mh_chain_reference(*fargs)[1]
+        sync()
+        said = agree(got, ref, True, 1e-5, f"frozen segment at {rr} rows, WF {wf}")
+        return k_ms, p_ms, b_ms, b_by, float((got - ref).abs().max()), said
+
+    z_r = z0b[None] + math.sqrt(mc.var_rw) * torch.randn((r, b, n_pad, l), generator=gen,
+                                                         device=dev)
+    entries = []
+    for name, rep, z, n_burn, n_samp, wf, n in (
+            (f"pmcem E-step, {r * rows:,} rows", r, z_r, mc.pmcem_steps - 1, 1, False,
+             pmcem_launches),
+            (f"pmcem WF, {r * rows:,} rows", r, z_r, mc.pmcem_wf_burn, -(-mc.nsamples_wf // r),
+             True, 1),
+            ("peem-wf WF", 1, run_peem(mats, x2b, z0b, maskb, SEED, mc).z, mc.burnin_wf,
+             mc.nsamples_wf, True, 1)):
+        k_ms, p_ms, b_ms, b_by, err, said = segment(rep, z, n_burn, n_samp, wf)
+        log(f"phase 10: mh_chain bf16 body, {name} segment steps={n_burn}+{n_samp}: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, kernel at "
+            f"{100 * b_ms / k_ms:.2f}% of bound; frozen segment kernel vs plain: max abs err "
+            f"{err:.3e}, {said} {tag}")
+        if not name.startswith("pmcem WF"):
+            entries.append({"name": f"mh_chain ({name})", "route": "cuda",
+                            "source": "dvae_tpu_torch/csrc/mh_chain.cu",
+                            "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": n,
+                            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": None})
+
+    # ---- 10d. the NTCD sweep CLIs end to end on a synthetic tree
+    noisy = sweep_tree(work, 16, SEED + 11)
+    for name, m in (("m1", model), ("v5", v5)):
+        torch.save(m.state_dict(), os.path.join(work, f"{name}.pt"))
+    base = ["--data-root", os.path.join(work, "data"), "--snr", "all", "--batch-size", "16",
+            "--niter", str(mc.niter)]
+    want = sorted(f"{os.path.splitext(p)[0]}{k}.wav" for p in noisy for k in ("_s_est", "_n_est"))
+
+    def cli(main, ckpt, out, *extra):
+        mh_chain.launches = stft_power.launches = 0
+        t0 = time.perf_counter()
+        n_done = main([*base, "--checkpoint", os.path.join(work, ckpt),
+                       "--output-dir", os.path.join(work, out), *extra])
+        wall = time.perf_counter() - t0
+        files = sorted(os.path.relpath(os.path.join(d, x), os.path.join(work, out))
+                       for d, _, xs in os.walk(os.path.join(work, out)) for x in xs)
+        return n_done, files, mh_chain.launches, stft_power.launches, wall
+
+    batches = -(-len(noisy) // 16)
+    n_done, files, n_chain, _, wall = cli(evaluate_ntcd_m1.main, "m1.pt", "m1")
+    log(f"phase 10: evaluate_ntcd_m1 over {len(noisy)} utterances: {n_done} enhanced, "
+        f"{len(files)} files, {n_chain} mh_chain launches, {wall:.2f} s")
+    check(n_done == len(noisy) and files == want and n_chain == batches * (mc.niter + 1),
+          "evaluate_ntcd_m1: reference layout and launches")
+    n_again = cli(evaluate_ntcd_m1.main, "m1.pt", "m1")[0]
+    check(n_again == 0, f"resume-by-skip enhanced {n_again}")
+    n_done, files, n_chain, _, _ = cli(evaluate_ntcd_m1.main, "m1.pt", "nomcem",
+                                       "--ablation", "clean-z-nomcem")
+    check(n_done == len(noisy) and n_chain == 0
+          and files == sorted(p.replace("_s_est", "_clean_z_nomcem_s_est")
+                              .replace("_n_est", "_clean_z_nomcem_n_est") for p in want),
+          "clean-z-nomcem golden names")
+    parts = [cli(evaluate_ntcd_m1.main, "m1.pt", f"shard{k}", "--shard", f"{k}/2",
+                 "--engine", "peem") for k in range(2)]
+    check(sorted(parts[0][1] + parts[1][1]) == want and not set(parts[0][1]) & set(parts[1][1]),
+          "two shards cover the list once")
+    n_done, files, n_chain, n_stft, wall = cli(
+        evaluate_ntcd_m2_info_vad.main, "v5.pt", "v5", "--y-source", "self-soft",
+        "--engine", "pmcem")
+    log(f"phase 10: evaluate_ntcd_m2_info_vad --y-source self-soft --engine pmcem: {n_done} "
+        f"enhanced, {n_stft} stft_power launches (one per utterance), {n_chain} mh_chain "
+        f"launches, {wall:.2f} s; evaluate_ntcd_m1 resume enhanced 0, clean-z-nomcem wrote "
+        f"the golden names with 0 chain launches, shards 0/2 + 1/2 wrote "
+        f"{len(parts[0][1])} + {len(parts[1][1])} files")
+    check(n_done == len(noisy) and n_stft == len(noisy) and n_chain == batches * (mc.niter + 1)
+          and files == sorted(p.replace(".wav", "_y_hat_soft.wav") for p in want),
+          "evaluate_ntcd_m2_info_vad self-soft pmcem")
+
+    # ---- 10e. PEEM's device time against its wall time, under the profiler
+    # (last in the script: host timings taken after the profiler ran slower)
+    from torch.profiler import ProfilerActivity, profile
+
+    short = dataclasses.replace(mc, niter=10)
+    with torch.inference_mode():
+        run_peem(mats, x2b, z0b, maskb, SEED, short)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_peem(mats, x2b, z0b, maskb, SEED, short)
+            sync()
+            wall = time.perf_counter() - t0
+    # the kernels' own events (a CPU op's device time counts the same kernels)
+    kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    device_s = sum(k[0] for k in kernels) / 1e6
+    if device_s > 0:
+        top = "; ".join(f"{k} x{c} {us / 1e3:.3f} ms" for us, c, k in sorted(kernels)[::-1][:6])
+        log(f"phase 10: run_peem niter {short.niter} under the profiler: wall {wall:.4f} s, "
+            f"device busy {device_s:.4f} s, idle share {100 * (1 - device_s / wall):.1f}%; "
+            f"largest: {top} {tag}")
+    else:
+        log("phase 10: run_peem under the profiler: no device time in the trace, idle share "
+            "not measured")
+    return entries
 
 
 def main() -> int:
@@ -908,7 +1232,7 @@ def main() -> int:
           "finite outputs, f32 body")
 
     # the padded batch as the main path sees it, for the comparisons and times
-    xw, x_scale, mask, _, n_pad, frames = enh._prepare(wavs, None, None)
+    xw, x_scale, _, _, mask, _, n_pad, frames = enh._prepare(wavs, None, None)
     with torch.inference_mode():
         x = xw.to(dev).float() * x_scale.to(dev)[:, None]
         re, im = stft_realimag(x, cfg.stft)
@@ -936,10 +1260,7 @@ def main() -> int:
             with plain_chain():
                 rp = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen)
         sync()
-        mask_err = max(float((rk.wfs - rp.wfs).abs().max()),
-                       float((rk.wfn - rp.wfn).abs().max()))
-        cost_err = rel_err(rk.cost, rp.cost)
-        part = float(((rk.wfs + rk.wfn - 1.0).abs() * maskb[:, :, None]).max())
+        mask_err, cost_err, part = frozen_agreement(rk, rp, maskb)
         log(f"phase 3: {name} frozen-chain run_mcem kernel vs plain: max mask diff "
             f"{mask_err:.3e} (limit 1e-3), max cost rel diff {cost_err:.3e} (limit 1e-4), "
             f"|WFs + WFn - 1| <= {part:.3e} on valid frames (limit 1e-5)")
@@ -1049,6 +1370,9 @@ def main() -> int:
 
     cleans = [c for c, _ in synthetic_parts(np.random.default_rng(SEED), B)]  # wavs' clean parts
     cond_entries = conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag, wall)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+        engine_entries = engines_phase(model, wavs, cleans, cfg.mcem, (x2b, z0b, maskb),
+                                       cuda_ms, plain_chain, agree, tag, wall, work)
 
     def chain_entry(name, fast, n):
         k_ms, p_ms, b_ms, b_by = times[fast, False]  # the E-step segment
@@ -1059,7 +1383,7 @@ def main() -> int:
 
     log(json.dumps({"kernels": [chain_entry("mh_chain", True, launches_mma),
                                 chain_entry("mh_chain_f32", False, launches_f32),
-                                *stft_entries, *cond_entries]}))
+                                *stft_entries, *cond_entries, *engine_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

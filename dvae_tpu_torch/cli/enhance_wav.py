@@ -4,8 +4,8 @@ card (port of the JAX package's ``scripts/enhance_wav.py``).
     python -m dvae_tpu_torch.cli.enhance_wav noisy1.wav recordings/ \\
         --model-dir models/ntcd_M1_... --output-dir enhanced/
 
-Runs the batched MCEM ``Enhancer`` over any list of wav files or
-directories (searched recursively). Conditional models need no oracle
+Runs the batched ``Enhancer`` (``--engine``: MCEM or one of its variants)
+over any list of wav files or directories (searched recursively). Conditional models need no oracle
 labels: ``--y-source self-soft`` runs the model's own x->y classifier on
 the noisy mixture (v3/v4/v5); ``npy`` reads a ``<stem>_y.npy`` beside each
 input; ``ones`` / ``zeros`` are the constant-label ablations. Outputs are
@@ -26,6 +26,8 @@ from dvae_tpu_torch.cli._family import (
     add_model_family,
     load_family_model,
     mcem_config_of,
+    read_norm_stats,
+    warn_peem_family,
 )
 from dvae_tpu_torch.data.io import read_wav, resample, wav_sample_rate, write_wav
 from dvae_tpu_torch.device import resolve_device
@@ -94,30 +96,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.y_source == "self-soft" and args.model_class in ("m2", "m2v2"):
         ap.error(f"{args.model_class} has no classifier; use --y-source npy/ones/zeros")
     for flag, on, item in (("--chunk-seconds (long-form)", args.chunk_seconds, 11),
-                           (f"--engine {args.engine}", args.engine != "mcem", 10),
                            ("--data-parallel", args.data_parallel, 14)):
         if on:
             ap.error(f"{flag}: " + _LATER.format(item))
     return args
 
 
-def _norm_stats(path):
-    """(X_train_mean, X_train_std) from an h5 file; HDF5 is read on a CPU
-    host only."""
-    try:
-        import h5py
-    except ImportError:
-        raise SystemExit("--std-norm --norm-h5 needs h5py, which this machine lacks: "
-                         "reading the HDF5 statistics is a CPU-host path") from None
-    with h5py.File(path, "r") as f:
-        return f["X_train_mean"][:], f["X_train_std"][:]
-
-
 def main(argv=None) -> None:
     args = parse_args(argv)
     device = resolve_device(args.platform)
     conditional = args.model_class != "m1"
-    norm = _norm_stats(args.norm_h5) if args.std_norm else None
+    norm = read_norm_stats(args.norm_h5) if args.std_norm else None
     stft_cfg = StftConfig()
     files = gather_inputs(args.inputs)
 
@@ -134,9 +123,10 @@ def main(argv=None) -> None:
 
     model, path = load_family_model(args)
     print(f"loaded {path}")
+    warn_peem_family(args, args.model_class, args.y_dim)
     y_mode = {"m1": "none", "m2": "enc_dec"}.get(args.model_class, "dec_only")
-    enh = Enhancer(model, EnhancerConfig(mcem=mcem_config_of(args), y_mode=y_mode, norm=norm),
-                   device=device)
+    enh = Enhancer(model, EnhancerConfig(mcem=mcem_config_of(args), y_mode=y_mode, norm=norm,
+                                         engine=args.engine), device=device)
     classify_method = classify_method_of(args.model_class)
 
     def load_input(p):

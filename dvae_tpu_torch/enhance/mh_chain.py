@@ -157,7 +157,10 @@ def _check(x2, vb, g, z, noise, mats, n_burn, n_samples):
 
 def decoder_reference(mats, by, fast_decoder: bool = False):
     """The plain decoder ``z -> Vs`` of the chain, with the first layer's
-    (row) bias ``by`` from :func:`_fold_bias`."""
+    (row) bias ``by`` from :func:`_fold_bias`: the counterpart of the JAX
+    package's ``make_mlp_decoder(mats, fast)``. Differentiable in ``z``:
+    with ``fast_decoder`` its bf16 casts round the cotangents to bf16 in
+    the backward pass, as the transpose of JAX's casts does."""
     w1z, _, _, w2, b2, w3, b3 = mats
     if fast_decoder:
         w1z, w2, w3 = _bf16(w1z), _bf16(w2), _bf16(w3)

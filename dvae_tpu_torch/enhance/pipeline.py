@@ -3,9 +3,11 @@ out (port of ``dvae_tpu.enhance.pipeline``).
 
   device (one batch):
       PCM16 wire decode -> STFT (matmul DFT) -> |X|^2 -> encoder mean
-      (of [|X|^2; y] for ``y_mode="enc_dec"``) -> MCEM (chain kernel with
-      the labels folded into its row bias, NMF M-steps) -> Wiener masks
-      -> S_hat = WFs*X -> batched mask-normalized ISTFT -> (B, T) waveforms
+      (of [|X|^2; y] for ``y_mode="enc_dec"``; of the clean spectrogram for
+      the clean-z ablations) -> the E-step engine (MCEM and its variants:
+      chain kernel with the labels folded into its row bias, NMF M-steps)
+      -> Wiener masks -> S_hat = WFs*X -> batched mask-normalized ISTFT
+      -> (B, T) waveforms
   host:
       ragged padding to 64-frame buckets, frame masks and zero-padded
       labels, per-utterance length finalisation and the Wiener-partition
@@ -25,7 +27,15 @@ import numpy as np
 import torch
 
 from dvae_tpu_torch.device import resolve_device
-from dvae_tpu_torch.enhance.mcem import McemConfig, fold_seed, run_mcem
+from dvae_tpu_torch.enhance.mcem import (
+    McemConfig,
+    fold_seed,
+    run_em_fixed_z,
+    run_mcem,
+    run_peem,
+    run_peem_wf,
+    run_pmcem,
+)
 from dvae_tpu_torch.enhance.mh_chain import extract_decoder_mlp
 from dvae_tpu_torch.ops.stft import (
     StftConfig,
@@ -36,6 +46,9 @@ from dvae_tpu_torch.ops.stft import (
 )
 
 _LATER = "not served by this port yet (a later PR, ROADMAP queue A{})"
+
+#: ``EnhancerConfig.engine`` -> the E-step engine (``enhance.mcem``)
+ENGINES = {"mcem": run_mcem, "peem": run_peem, "peem-wf": run_peem_wf, "pmcem": run_pmcem}
 
 
 def _slice(seq, a, b):
@@ -57,11 +70,14 @@ class EnhancerConfig:
     """Same fields as the JAX package's config. This port serves every
     ``y_mode``: ``"none"`` (M1), ``"enc_dec"`` (M2's ``CVAE``, whose
     encoder sees ``[x; y]``) and ``"dec_only"`` (``CVAE_v2``-``v4`` and
-    ``DisentangledVAE``); it serves ``engine="mcem"``, ``ablation="none"``
-    and ``aot_dir=None``, and other values raise NotImplementedError.
-    ``norm`` is the (mean, std) train statistics of a model trained with
-    std_norm: the encoder then sees (|X|^2 - mean) / (std + norm_eps), with
-    y concatenated after."""
+    ``DisentangledVAE``); every ``engine`` (:data:`ENGINES`) and every
+    ``ablation``; ``aot_dir`` other than None raises NotImplementedError.
+    ``ablation``: ``"clean_z"`` starts the latent from the clean
+    spectrogram's encoding instead of the mixture's, ``"clean_z_nomcem"``
+    pins it there (``run_em_fixed_z``, whatever the engine); both need the
+    clean waveforms. ``norm`` is the (mean, std) train statistics of a
+    model trained with std_norm: the encoder then sees (|X|^2 - mean) /
+    (std + norm_eps), with y concatenated after."""
 
     stft: StftConfig = StftConfig()
     mcem: McemConfig = McemConfig()
@@ -94,11 +110,9 @@ class Enhancer:
             raise ValueError(f"bad wire_dtype {cfg.wire_dtype!r}")
         if cfg.ablation not in ("none", "clean_z", "clean_z_nomcem"):
             raise ValueError(f"bad ablation {cfg.ablation!r}")
-        if cfg.engine not in ("mcem", "peem", "peem-wf", "pmcem"):
+        if cfg.engine not in ENGINES:
             raise ValueError(f"bad engine {cfg.engine!r}")
         for name, value, served, item in (
-                ("engine", cfg.engine, "mcem", 10),
-                ("ablation", cfg.ablation, "none", 10),
                 ("aot_dir", cfg.aot_dir, None, 11), ("mesh", mesh, None, 14)):
             if value != served:
                 raise NotImplementedError(f"{name}={value!r}: " + _LATER.format(item))
@@ -111,7 +125,7 @@ class Enhancer:
             for a in cfg.norm)
         if self.mats is None:
             raise NotImplementedError(
-                "the MCEM chain needs a two-hidden-layer decoder; "
+                "the E-step engines need a two-hidden-layer decoder; "
                 + _LATER.format(10))
         self.last_cost = None
 
@@ -130,20 +144,26 @@ class Enhancer:
 
     # -- device program ------------------------------------------------------
     @torch.inference_mode()
-    def _core(self, xw, x_scale, mask, y, seed: int, n_frames: int):
+    def _core(self, xw, x_scale, sw, s_scale, mask, y, seed: int, n_frames: int):
+        """``sw`` / ``s_scale``: the clean waveforms on the wire (the clean-z
+        ablations only, else None)."""
         cfg = self.cfg
-        x = xw.to(torch.float32) * x_scale[:, None]
-        re, im = stft_realimag(x, cfg.stft)
-        re, im = re[:, :n_frames], im[:, :n_frames]  # (B, N, F)
-        x2 = re * re + im * im
-        enc_in = x2
-        if self._norm is not None:  # the encoder input only; MCEM sees raw x2
+
+        def power(w, scale):
+            re, im = stft_realimag(w.to(torch.float32) * scale[:, None], cfg.stft)
+            re, im = re[:, :n_frames], im[:, :n_frames]  # (B, N, F)
+            return re, im, re * re + im * im
+
+        re, im, x2 = power(xw, x_scale)
+        enc_in = x2 if cfg.ablation == "none" else power(sw, s_scale)[2]
+        if self._norm is not None:  # the encoder input only; the engine sees raw x2
             mean, std = self._norm
-            enc_in = (x2 - mean) / (std + cfg.norm_eps)
+            enc_in = (enc_in - mean) / (std + cfg.norm_eps)
         if cfg.y_mode == "enc_dec":
             enc_in = torch.cat([enc_in, y], -1)
         _, z0, _ = self.model.encode(enc_in, sample=False)
-        res = run_mcem(self.mats, x2, z0, mask, seed, cfg.mcem, y=y)
+        engine = run_em_fixed_z if cfg.ablation == "clean_z_nomcem" else ENGINES[cfg.engine]
+        res = engine(self.mats, x2, z0, mask, seed, cfg.mcem, y=y)
         s = istft_realimag_masked(res.wfs * re, res.wfs * im, mask, cfg.stft)
         n = None
         if not cfg.noise_from_partition:
@@ -159,11 +179,14 @@ class Enhancer:
         return s, s_scale, n, n_scale, res.cost
 
     # -- host orchestration ----------------------------------------------------
-    def _prepare(self, wavs, ys, max_frames):
-        """Pad/bucket the wavs (and labels) into the wire arrays. Returns
-        (xw, x_scale, mask, y, n_pad, frames) as CPU tensors / ints; ``y``
-        is (B, n_pad, Y), each utterance's labels cut at its frame count and
-        zero beyond, or None for ``y_mode="none"``."""
+    def _prepare(self, wavs, ys, max_frames, clean_wavs=None):
+        """Pad/bucket the wavs (and labels, and clean waveforms) into the
+        wire arrays. Returns (xw, x_scale, sw, s_scale, mask, y, n_pad,
+        frames) as CPU tensors / ints; ``sw`` / ``s_scale`` are the clean
+        waveforms with their own PCM16 scale, or None without
+        ``clean_wavs``; ``y`` is (B, n_pad, Y), each utterance's labels cut
+        at its frame count and zero beyond, or None for
+        ``y_mode="none"``."""
         cfg = self.cfg
         b = len(wavs)
         frames = [n_stft_frames_clamped(len(w), cfg.stft) for w in wavs]
@@ -171,15 +194,19 @@ class Enhancer:
             frames = [max(1, min(f, int(mf))) for f, mf in zip(frames, max_frames)]
         n_pad = -(-max(frames) // cfg.frame_bucket) * cfg.frame_bucket
         t_pad = samples_for_frames(n_pad, cfg.stft)
-        x = np.zeros((b, t_pad), dtype=np.float32)
-        for i, w in enumerate(wavs):
-            t_use = min(len(w), t_pad)  # max_frames may leave samples unused
-            x[i, :t_use] = np.asarray(w[:t_use], dtype=np.float32)
-        x = torch.from_numpy(x)
-        if cfg.wire_dtype == "int16":
-            xw, x_scale = _quantize_pcm16(x)
-        else:
-            xw, x_scale = x, torch.ones((b,))
+
+        def pack(ws):
+            x = np.zeros((b, t_pad), dtype=np.float32)
+            for i, w in enumerate(ws):
+                t_use = min(len(w), t_pad)  # max_frames may leave samples unused
+                x[i, :t_use] = np.asarray(w[:t_use], dtype=np.float32)
+            x = torch.from_numpy(x)
+            if cfg.wire_dtype == "int16":
+                return _quantize_pcm16(x)
+            return x, torch.ones((b,))
+
+        xw, x_scale = pack(wavs)
+        sw, s_scale = (None, None) if clean_wavs is None else pack(clean_wavs)
         mask = torch.zeros((b, n_pad))
         for i in range(b):
             mask[i, :frames[i]] = 1.0
@@ -193,14 +220,23 @@ class Enhancer:
                 n = min(len(yi), frames[i])
                 y[i, :n] = yi[:n]
             y = torch.from_numpy(y)
-        return xw, x_scale, mask, y, n_pad, frames
+        return xw, x_scale, sw, s_scale, mask, y, n_pad, frames
 
-    def _dispatch(self, wavs, ys, seed, max_frames):
-        """Pad + upload one batch and enqueue its device work (async)."""
-        xw, x_scale, mask, y, n_pad, frames = self._prepare(wavs, ys, max_frames)
-        dev = self.device
-        out_dev = self._core(xw.to(dev), x_scale.to(dev), mask.to(dev),
-                             None if y is None else y.to(dev),
+    def _dispatch(self, wavs, ys, seed, max_frames, clean_wavs=None):
+        """Pad + upload one batch and enqueue its device work (async). The
+        clean waveforms are read for the clean-z ablations only."""
+        if self.cfg.ablation == "none":
+            clean_wavs = None
+        elif clean_wavs is None:
+            raise ValueError(f"ablation={self.cfg.ablation} needs the clean waveforms "
+                             "(clean_wavs=...) to encode the clean latent")
+        xw, x_scale, sw, s_scale, mask, y, n_pad, frames = self._prepare(
+            wavs, ys, max_frames, clean_wavs)
+
+        def up(t):
+            return None if t is None else t.to(self.device)
+
+        out_dev = self._core(up(xw), up(x_scale), up(sw), up(s_scale), up(mask), up(y),
                              0 if seed is None else seed, n_pad)
         lengths = [len(w) for w in wavs]
         if self.cfg.noise_from_partition:
@@ -236,21 +272,25 @@ class Enhancer:
 
     def enhance_batch(self, wavs: Sequence[np.ndarray],
                       ys: Sequence[np.ndarray] | None = None, seed: int | None = None,
-                      max_frames: Sequence[int] | None = None):
+                      max_frames: Sequence[int] | None = None,
+                      clean_wavs: Sequence[np.ndarray] | None = None):
         """Enhance a batch of (possibly ragged) utterances.
 
         Args:
             wavs: float waveforms at ``cfg.stft.fs``.
             ys: per-utterance (n_frames, y_dim) labels, required unless
                 ``cfg.y_mode == "none"``.
-            seed: integer seed of the MCEM random streams (default 0).
+            seed: integer seed of the engine's random streams (default 0).
             max_frames: optional per-utterance frame cap.
+            clean_wavs: per-utterance clean waveforms, required when
+                ``cfg.ablation`` is a clean-z mode, ignored otherwise.
         Returns:
             list of (s_hat, n_hat) float32 waveforms, each ``len(wavs[i])``.
         """
-        return self.collect(self.dispatch(wavs, ys, seed, max_frames))
+        return self.collect(self.dispatch(wavs, ys, seed, max_frames, clean_wavs))
 
-    def dispatch(self, wavs, ys=None, seed: int | None = None, max_frames=None) -> list:
+    def dispatch(self, wavs, ys=None, seed: int | None = None, max_frames=None,
+                 clean_wavs=None) -> list:
         """The asynchronous half of :meth:`enhance_batch`: enqueue the work
         (split at ``max_device_batch``) and return a handle for
         :meth:`collect`."""
@@ -258,10 +298,10 @@ class Enhancer:
         if len(wavs) == 0:
             return []
         if len(wavs) <= mdb:
-            return [self._dispatch(wavs, ys, seed, max_frames)]
+            return [self._dispatch(wavs, ys, seed, max_frames, clean_wavs)]
         seed = 0 if seed is None else seed
         return [self._dispatch(wavs[a:a + mdb], _slice(ys, a, a + mdb), fold_seed(seed, j),
-                               _slice(max_frames, a, a + mdb))
+                               _slice(max_frames, a, a + mdb), _slice(clean_wavs, a, a + mdb))
                 for j, a in enumerate(range(0, len(wavs), mdb))]
 
     def collect(self, handles: list) -> list[tuple[np.ndarray, np.ndarray]]:
@@ -273,8 +313,8 @@ class Enhancer:
 
     def enhance_stream(self, batches, seed: int | None = None):
         """Pipelined enhancement over an iterable of ``(wavs, ys, max_frames)``
-        batches (``ys`` None for ``y_mode="none"``; a fourth ``clean_wavs``
-        element, for the clean-z ablations, raises). Up to
+        batches (``ys`` None for ``y_mode="none"``), optionally with a fourth
+        ``clean_wavs`` element (the clean-z ablations). Up to
         ``pipeline_depth + 1`` batches are in flight; yields one result list
         per input batch, in order."""
         seed = 0 if seed is None else seed
@@ -284,15 +324,14 @@ class Enhancer:
         def sub_batches():
             for i, tup in enumerate(batches):
                 wavs, ys, max_frames = tup[:3]
-                if len(tup) > 3:
-                    raise NotImplementedError("clean wavs (the clean-z ablations): "
-                                              + _LATER.format(10))
+                clean_wavs = tup[3] if len(tup) > 3 else None
                 if len(wavs) == 0:
-                    yield i, 0, True, None, None, None  # keeps one yield per batch
+                    yield i, 0, True, None, None, None, None  # one yield per batch
                     continue
                 for j, a in enumerate(range(0, len(wavs), mdb)):
                     yield (i, j, a + mdb >= len(wavs), wavs[a:a + mdb],
-                           _slice(ys, a, a + mdb), _slice(max_frames, a, a + mdb))
+                           _slice(ys, a, a + mdb), _slice(max_frames, a, a + mdb),
+                           _slice(clean_wavs, a, a + mdb))
 
         acc = []
         pending = collections.deque()  # (handle_or_None, last)
@@ -306,9 +345,9 @@ class Enhancer:
                 return out
             return None
 
-        for i, j, last, wavs, ys, max_frames in sub_batches():
+        for i, j, last, wavs, ys, max_frames, clean_wavs in sub_batches():
             handle = None if wavs is None else self._dispatch(
-                wavs, ys, fold_seed(fold_seed(seed, i), j), max_frames)
+                wavs, ys, fold_seed(fold_seed(seed, i), j), max_frames, clean_wavs)
             pending.append((handle, last))
             if len(pending) > depth:
                 out = emit(*pending.popleft())

@@ -83,7 +83,7 @@ def test_enhance_wav_writes_the_wiener_split(tree, capsys, family, source):
     (["--model-class", "m2", "--y-source", "self-soft"], "m2 has no classifier"),
     (["--model-class", "m2v2"], "m2v2 has no classifier"),
     (["--chunk-seconds", "10"], "A11"),
-    (["--engine", "peem"], "A10"),
+    (["--engine", "gibbs"], "invalid choice: 'gibbs'"),
     (["--data-parallel"], "A14"),
     (["--std-norm"], "--std-norm requires --norm-h5"),
     ([], "need --checkpoint or --model-dir"),

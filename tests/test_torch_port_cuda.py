@@ -25,6 +25,8 @@ rtol 1e-4 above a floor of 1e-6 of the batch's peak power, log power to
 or log(eps).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -222,6 +224,71 @@ def test_cuda_conditioned_enhancer_frozen_matches_plain(cuda, monkeypatch, fast,
         assert np.isfinite(sk).all() and np.isfinite(nk).all()
         assert np.abs(sk - sp)[core].max() < 1e-3 * peak
         assert np.abs(sk + nk - x)[core].max() < 1e-4 * peak
+
+
+# chain launches of each engine, from its config
+ENGINE_LAUNCHES = {"run_pmcem": lambda cfg: cfg.niter + 1, "run_peem_wf": lambda cfg: 1,
+                   "run_peem": lambda cfg: 0, "run_em_fixed_z": lambda cfg: 0}
+
+
+def _engine_problem(cuda, fast, seed=6):
+    b, n = 4, 64
+    mats, x2, _, _, z0, _ = _problem(cuda, b * n, seed=seed)
+    mask = torch.ones((b, n), device=cuda)
+    mask[1, 40:] = 0.0
+    cfg = McemConfig(niter=4, nsamples_e_step=3, burnin_e_step=2, nsamples_wf=4,
+                     burnin_wf=2, var_rw=0.0, fast_decoder=fast, pmcem_chains=3,
+                     pmcem_steps=3, pmcem_wf_burn=2, peem_steps=2)
+    return mats, x2.reshape(b, n, F), z0.reshape(b, n, L), mask, cfg
+
+
+@pytest.mark.cuda
+@PRECISIONS
+@pytest.mark.parametrize("engine", ["run_pmcem", "run_peem_wf"])
+def test_cuda_frozen_engine_matches_plain(cuda, monkeypatch, fast, engine):
+    """Frozen pmcem (all chains at z_init, as the R x B*N rows of each
+    segment) and frozen peem-wf through the kernel and through the plain
+    chain on the card, with run_mcem's limits: rtol 1e-4 (f32 body) or 5e-3
+    (bf16 body); their launch counts, niter + 1 and 1."""
+    from dvae_tpu_torch.enhance import mcem
+
+    mats, x2, z0, mask, cfg = _engine_problem(cuda, fast)
+    want = cfg.niter + 1 if engine == "run_pmcem" else 1
+    before, before_mma = mh_chain.launches, mh_chain.launches_mma
+    rk = getattr(mcem, engine)(mats, x2, z0, mask, 7, cfg)
+    torch.cuda.synchronize()
+    assert mh_chain.launches == before + want
+    assert mh_chain.launches_mma == before_mma + (want if fast else 0)
+    monkeypatch.setattr(mcem, "run_mh_chain", mh_chain_reference)
+    rp = getattr(mcem, engine)(mats, x2, z0, mask, 7, cfg)
+    assert mh_chain.launches == before + want
+    for a, b_ in zip(rk, rp):
+        torch.testing.assert_close(a, b_, rtol=5e-3 if fast else 1e-4, atol=1e-5)
+    part = (rk.wfs + rk.wfn - 1.0).abs() * mask[:, :, None]
+    assert float(part.max()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", list(ENGINE_LAUNCHES))
+def test_cuda_engines_never_take_the_plain_chain(cuda, monkeypatch, engine):
+    """Every engine on CUDA tensors launches the kernel for each MH segment
+    (pmcem niter + 1, peem-wf 1, PEEM and the pinned latent none) and never
+    reaches the plain chain; outputs finite, the Wiener partition holds."""
+    from dvae_tpu_torch.enhance import mcem
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain chain ran on CUDA tensors")
+
+    monkeypatch.setattr(mh_chain, "mh_chain_reference", plain)
+    mats, x2, z0, mask, cfg = _engine_problem(cuda, True, seed=9)
+    cfg = dataclasses.replace(cfg, var_rw=0.01)
+    before = mh_chain.launches
+    res = getattr(mcem, engine)(mats, x2, z0, mask, 3, cfg)
+    torch.cuda.synchronize()
+    assert mh_chain.launches - before == ENGINE_LAUNCHES[engine](cfg)
+    assert all(bool(torch.isfinite(t).all()) for t in res)
+    part = (res.wfs + res.wfn - 1.0).abs() * mask[:, :, None]
+    assert float(part.max()) < 1e-5
 
 
 def _quirk_length():

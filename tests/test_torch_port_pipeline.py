@@ -123,11 +123,17 @@ def test_default_device_without_cuda_raises(models):
         Enhancer(models[2], device="cuda")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("ablation", "clean_z_nomcem"), ("engine", "peem"), ("ablation", "clean_z"),
-    ("aot_dir", "/nonexistent")])
+@pytest.mark.parametrize("field,value", [("aot_dir", "/nonexistent")])
 def test_unserved_config_values_raise(models, field, value):
     with pytest.raises(NotImplementedError, match="later PR"):
+        Enhancer(models[2], EnhancerConfig(**{field: value}), device="cpu")
+    with pytest.raises(NotImplementedError, match="A14"):
+        Enhancer(models[2], device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("field,value", [("engine", "gibbs"), ("ablation", "clean-z")])
+def test_bad_engine_or_ablation_raises(models, field, value):
+    with pytest.raises(ValueError, match=f"bad {field}"):
         Enhancer(models[2], EnhancerConfig(**{field: value}), device="cpu")
 
 

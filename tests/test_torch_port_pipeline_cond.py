@@ -140,8 +140,9 @@ def test_labels_beyond_frames_are_inert_and_required():
 def test_split_and_stream_slice_the_labels():
     """max_device_batch splits ys with the wavs (sub-batch j seeded
     fold_seed(seed, j)); enhance_stream takes ys per batch (batch i,
-    sub-batch j seeded fold_seed(fold_seed(seed, i), j)); a clean-wavs
-    element still raises."""
+    sub-batch j seeded fold_seed(fold_seed(seed, i), j)); a fourth,
+    clean-wavs element rides along unused when no clean-z ablation is
+    set."""
     _, _, tm = _models("DisentangledVAE", 1)
     quick = McemConfig(niter=2, nsamples_e_step=1, burnin_e_step=1, nsamples_wf=1,
                        burnin_wf=1)
@@ -160,8 +161,11 @@ def test_split_and_stream_slice_the_labels():
     assert [len(r) for r in stream] == [3, 0, 1]
     first = enh.enhance_batch(ws[:1], ys[:1], seed=fold_seed(fold_seed(3, 2), 0))
     np.testing.assert_array_equal(stream[2][0][0], first[0][0])
-    with pytest.raises(NotImplementedError, match="A10"):
-        list(enh.enhance_stream([(ws, ys, None, ws)]))
+    with_clean = list(enh.enhance_stream([(ws, ys, None, ws), ([], None, None, []),
+                                          (ws[:1], ys[:1], None, ws[:1])], seed=3))
+    for got, want in zip(with_clean, stream):
+        for (a, _), (b, _) in zip(got, want):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("y_mode,wire", [("dec_only", "int16"), ("enc_dec", "float32")])
