@@ -76,8 +76,28 @@ Phases, in order; any failure exits non-zero:
    clean-z-nomcem`` writes the golden names, ``--shard 0/2`` and ``1/2``
    cover the list once, and ``evaluate_ntcd_m2_info_vad --y-source
    self-soft --engine pmcem`` runs one STFT power launch per utterance;
-   then a short ``run_peem`` under ``torch.profiler`` gives PEEM's device
-   time against its wall time.
+   the short ``run_peem`` under ``torch.profiler`` runs last in the script
+   (after phase 11), since host timings taken after it ran slower;
+11. the HTTP enhancement server on the phase-3 M1 model (a copy) at the
+   full budget: ``EnhanceService`` (batch 8, window 25 ms, 6 s chunks)
+   behind ``make_server`` on a loopback port, warmed on the 320-frame
+   bucket; 16 concurrent ``POST /enhance?return=stereo`` of the phase-3
+   mixtures (all 200, at most 3 batches, exactly batches x (niter + 1)
+   bf16-body chain launches, the Wiener partition), with requests/s, the
+   latency quantiles and busy_seconds over the wall; one 30 s mixture
+   through ``?stream=1`` (exact length, partition, first and last body
+   bytes); ``/reload`` of perturbed weights under ``build/``; ``/healthz``
+   (platform gpu, ready) and ``/metrics``; then, in each decoder
+   precision, a frozen served batch of 8 against the same batch through
+   ``enhance_batch`` with the plain chain, with phase 3's limits; an
+   M2-info service with self-soft labels (one STFT power launch and niter
+   + 1 conditioned chain launches per batch); times: a served batch's
+   ``dispatch`` and ``collect``, a batch of 1 request and 7 fillers, the
+   E-step segment at the served 2,560 rows and the STFT power kernel at
+   the self-soft batch; ``python -m dvae_tpu_torch.cli.serve`` as a
+   subprocess (ready, one request, SIGTERM exits 0); and
+   ``enhance_wav --chunk-seconds 4`` on a 30 s wav (the partition, one
+   chain run per dispatch of 4 chunks).
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -1039,10 +1059,20 @@ def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, t
           and files == sorted(p.replace(".wav", "_y_hat_soft.wav") for p in want),
           "evaluate_ntcd_m2_info_vad self-soft pmcem")
 
-    # ---- 10e. PEEM's device time against its wall time, under the profiler
-    # (last in the script: host timings taken after the profiler ran slower)
+    return entries
+
+
+def peem_profile(mats, batch, mc, tag: str) -> None:
+    """Phase 10's last step, run last in the script (host timings taken
+    after the profiler ran slower): PEEM's device time against its wall
+    time, under ``torch.profiler``."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from dvae_tpu_torch.enhance.mcem import run_peem
+
+    sync = torch.cuda.synchronize
+    x2b, z0b, maskb = batch
     short = dataclasses.replace(mc, niter=10)
     with torch.inference_mode():
         run_peem(mats, x2b, z0b, maskb, SEED, short)
@@ -1064,7 +1094,420 @@ def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, t
     else:
         log("phase 10: run_peem under the profiler: no device time in the trace, idle share "
             "not measured")
-    return entries
+
+
+def serving_phase(model, wavs, cuda_ms, plain_chain, agree, tag: str, work: str) -> list:
+    """Phase 11 on the card: the HTTP enhancement server and long-form
+    enhancement on the phase-3 M1 model (a copy) and mixtures at the full
+    budget; returns the kernels-line entries of the served path."""
+    import copy
+    import io
+    import signal
+    import socket
+    import threading
+    import urllib.request
+
+    import torch
+
+    from dvae_tpu_torch.cli import enhance_wav
+    from dvae_tpu_torch.data.io import read_wav, write_wav
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.longform import chunk_spans
+    from dvae_tpu_torch.enhance.mcem import McemConfig, fold_seed
+    from dvae_tpu_torch.enhance.mh_chain import make_chain_noise, mh_chain_reference, run_mh_chain
+    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import DisentangledVAE
+    from dvae_tpu_torch.models.blocks import init_xavier_
+    from dvae_tpu_torch.ops import stft_power
+    from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped, pad_signal, stft_realimag
+    from dvae_tpu_torch.serving import EnhanceService, ServeConfig, make_server
+    from dvae_tpu_torch.serving.metrics import _PROM_COUNTERS
+    from dvae_tpu_torch.serving.wire import _parse_wav_bytes, _wav_bytes
+
+    dev, sync, clock = torch.device("cuda"), torch.cuda.synchronize, time.perf_counter
+    stft_cfg, mc, bsz = StftConfig(), McemConfig(), 8
+    want, nfft, hop = mc.niter + 1, stft_cfg.nfft, stft_cfg.hop
+
+    def body(x):
+        """``x`` as a client posts it: a PCM16 RIFF file."""
+        return _wav_bytes([x], FS)
+
+    def sent(x):
+        """What the server decodes from ``body(x)``."""
+        return _parse_wav_bytes(body(x))[0].astype(np.float32)
+
+    def post(url, data, timeout=300):
+        req = urllib.request.Request(url, data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+
+    def get(url, timeout=60):
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.read()
+
+    def partition(s, n, x, pcm=True):
+        """max |s + n - x| on the covered core over its limit (<= 1 passes):
+        phase 3's 1e-4 of the peak, plus one PCM16 step for a wav response
+        (speech and noise are each rounded to the grid once)."""
+        fr = n_stft_frames_clamped(len(x), stft_cfg)
+        core = slice(nfft, min(len(x), (fr - 1) * hop + nfft) - nfft)
+        limit = 1e-4 * float(np.abs(x).max()) + (1.0 / 32768 if pcm else 0.0)
+        if not len(s) == len(n) == len(x):
+            return math.inf
+        return float(np.abs(s + n - x)[core].max()) / limit
+
+    def stereo_partition(resp, x):
+        both = read_wav(io.BytesIO(resp))[0]
+        return partition(both[:, 0], both[:, 1], x)
+
+    def settle(service):
+        """Wait until every admitted item is fully processed (the worker
+        counts a batch after it answers the waiters)."""
+        deadline = clock() + 60
+        while service._unfinished and clock() < deadline:
+            time.sleep(0.005)
+
+    def burst(service, base, reqs):
+        """``reqs`` posted at once from one thread each; checks every answer
+        and the launches, returns the chain launches and the line to log."""
+        get(f"{base}/healthz")  # builds urllib's opener once, outside the timing
+        bodies = [body(x) for x in reqs]
+        st0 = service.stats_snapshot()
+        results, lat = [None] * len(reqs), [0.0] * len(reqs)
+        start = threading.Barrier(len(reqs))
+
+        def client(i):
+            start.wait(timeout=60)
+            t = clock()
+            results[i] = post(f"{base}/enhance?return=stereo", bodies[i])
+            lat[i] = clock() - t
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+        mh_chain.launches = mh_chain.launches_mma = 0
+        t0 = clock()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = clock() - t0
+        n_chain, n_served = mh_chain.launches, mh_chain.launches_mma
+        settle(service)
+        st = service.stats_snapshot()
+        batches = st["batches"] - st0["batches"]
+        check(all(r is not None and r[0] == 200 for r in results), "16 requests answered 200")
+        worst = max(stereo_partition(r[1], sent(x)) for r, x in zip(results, reqs))
+        check(worst <= 1.0, f"served Wiener partition at {worst} of its limit")
+        check(batches <= 3 and n_chain == n_served == batches * want,
+              f"{batches} batches, {n_served} bf16 launches of {n_chain}")
+        busy = st["busy_seconds"] - st0["busy_seconds"]
+        q = st["latency_seconds"]
+        audio = sum(len(x) for x in reqs) / FS
+        return n_served, (
+            f"all 200 in {batches} batches, {n_served} bf16-body chain launches (expected "
+            f"{batches} x {want}); wall {wall:.4f} s, {len(reqs) / wall:.3f} requests/s, "
+            f"{audio / wall:.2f} audio s per s; /stats latency p50 {q['p50']} p90 {q['p90']} "
+            f"p99 {q['p99']} s; client p50 {np.percentile(lat, 50):.4f} p95 "
+            f"{np.percentile(lat, 95):.4f} s; busy_seconds {busy:.4f} over the wall: "
+            f"{busy / wall:.3f}; Wiener partition max |s + n - x| at {worst:.3f} of its limit "
+            f"(1e-4 of the peak + 1 PCM16 step)")
+
+    # ---- 11a. service, server, warmup. Chunks of 6 s: the ~5.1 s mixtures
+    # ride as one item each (a 4 s chunk would split each into two items of
+    # the 256 bucket); the 30 s request splits into 6 s chunks
+    cfg = ServeConfig(batch_size=bsz, batch_window_ms=25.0, chunk_seconds=6.0,
+                      warmup_buckets=(320,))
+    svc = EnhanceService(copy.deepcopy(model), "m1", EnhancerConfig(), cfg)
+    srv = make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        t0 = clock()
+        svc.warmup()
+        warm = clock() - t0
+        check(svc.warm_buckets == [320] and svc.ready.is_set(), "warmup of the 320 bucket")
+        log(f"phase 11: EnhanceService M1 (batch 8, window 25 ms, chunk 6 s) on {svc.device}: "
+            f"warmup of the 320-frame bucket {warm:.4f} s (one batch of {want} chain "
+            f"launches; the kernels were built in phase 1) {tag}")
+
+        # ---- 11b. 16 concurrent requests; counts from 0 around the path
+        reqs = wavs[:16]
+        n_served, said_pipelined = burst(svc, url, reqs)
+        log(f"phase 11: 16 concurrent POST /enhance?return=stereo (phase-3 mixtures, "
+            f"{sum(len(x) for x in reqs) / FS:.1f} s of audio), 2-deep pipelined worker: "
+            f"{said_pipelined} {tag}")
+
+        # ---- 11c. one 30 s request, streamed
+        long_x = np.concatenate(wavs)[:30 * FS]
+        n_chunks = len(chunk_spans(len(long_x), FS, hop, cfg.chunk_seconds,
+                                   min(1.0, cfg.chunk_seconds / 4)))
+        st0 = svc.stats_snapshot()
+        mh_chain.launches = 0
+        req = urllib.request.Request(f"{url}/enhance?stream=1&return=stereo",
+                                     data=body(long_x), method="POST")
+        t0 = clock()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            first = r.read(48)       # the RIFF header and the first stereo frame
+            t_first = clock() - t0
+            resp = first + r.read()
+            t_last = clock() - t0
+            status, clen = r.status, int(r.headers["Content-Length"])
+        st = svc.stats_snapshot()
+        batches_long = st["batches"] - st0["batches"]
+        part = stereo_partition(resp, sent(long_x))
+        check(status == 200 and len(resp) == clen == 44 + 4 * len(long_x),
+              f"stream length {len(resp)} / {clen} for {len(long_x)} samples")
+        check(part <= 1.0 and mh_chain.launches == batches_long * want
+              and st["utterances"] - st0["utterances"] == n_chunks, "30 s streamed request")
+        log(f"phase 11: POST /enhance?stream=1 of a 30 s mixture: {n_chunks} chunks of 6 s in "
+            f"{batches_long} batches ({mh_chain.launches} chain launches), exact length "
+            f"{len(long_x)} samples; first body bytes after {t_first:.4f} s, last after "
+            f"{t_last:.4f} s; Wiener partition at {part:.3f} of its limit {tag}")
+
+        # ---- 11e. hot reload of perturbed weights, then a request
+        pert = copy.deepcopy(model).cpu()
+        gen = torch.Generator().manual_seed(SEED + 12)
+        with torch.no_grad():
+            for p in pert.parameters():
+                p.add_(0.01 * torch.randn(p.shape, generator=gen))
+        ckpt = os.path.join(work, "m1_perturbed.pt")
+        torch.save(pert.state_dict(), ckpt)
+        try:
+            status, _ = post(f"{url}/reload?checkpoint={ckpt}", b"")
+        finally:
+            os.remove(ckpt)
+        served = svc.enhancer.model.state_dict()
+        same = all(torch.equal(served[k].cpu(), v) for k, v in pert.state_dict().items())
+        status2, resp = post(f"{url}/enhance?return=stereo", body(wavs[16]))
+        check(status == 200 and svc.stats_snapshot()["reloads"] == 1 and same,
+              "hot reload applied")
+        check(status2 == 200 and stereo_partition(resp, sent(wavs[16])) <= 1.0,
+              "request after the reload")
+        log("phase 11: POST /reload of perturbed weights: 200, reloads 1, the served weights "
+            "are the checkpoint's; the next request answered 200 with the Wiener partition")
+
+        # ---- 11f. status endpoints
+        health = json.loads(get(f"{url}/healthz"))
+        metrics = get(f"{url}/metrics").decode()
+        check(health["platform"] == "gpu" and health["ready"] is True
+              and health["status"] == "ok", f"/healthz {health}")
+        check(all(f"\n{name} " in metrics for _, name, _ in _PROM_COUNTERS)
+              and "\ndvae_ready 1\n" in metrics, "/metrics carries the service counters")
+        log(f"phase 11: /healthz status {health['status']}, platform {health['platform']}, "
+            f"warm buckets {health['warm_buckets']}; /metrics {len(metrics.splitlines())} "
+            f"lines, requests_total {svc.stats_snapshot()['requests']}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+        thread.join(timeout=10)
+
+    # ---- 11b, again: the same burst against a strictly sequential worker
+    seq = EnhanceService(copy.deepcopy(model), "m1", EnhancerConfig(),
+                         dataclasses.replace(cfg, pipeline_dispatch=False))
+    seq_srv = make_server(seq, "127.0.0.1", 0)
+    seq_thread = threading.Thread(target=seq_srv.serve_forever, daemon=True)
+    seq_thread.start()
+    try:
+        seq.warmup()
+        _, said = burst(seq, f"http://127.0.0.1:{seq_srv.server_address[1]}", reqs)
+        log(f"phase 11: the same 16 requests, sequential worker (pipeline_dispatch=False): "
+            f"{said} {tag}")
+    finally:
+        seq_srv.shutdown()
+        seq_srv.server_close()
+        seq.close()
+        seq_thread.join(timeout=10)
+
+    # ---- 11d. a frozen served batch against the plain chain, both bodies
+    for fast in (True, False):
+        fcfg = EnhancerConfig(mcem=McemConfig(var_rw=0.0, fast_decoder=fast),
+                              noise_from_partition=False, wire_dtype="float32")
+        fsvc = EnhanceService(copy.deepcopy(model), "m1", fcfg,
+                              ServeConfig(batch_size=bsz, batch_window_ms=1000.0,
+                                          warmup_buckets=()))
+        try:
+            items = [fsvc._admit(x, "self-soft", True) for x in wavs[:bsz]]  # in batch order
+            out_k = [fsvc._await(it, 600) for it in items]
+            check(fsvc.stats_snapshot()["batches"] == 1, "frozen requests in one batch")
+        finally:
+            fsvc.close()
+        with plain_chain():
+            out_p = fsvc.enhancer.enhance_batch(wavs[:bsz], seed=fold_seed(cfg.seed, 0))
+        wave_err = part_err = 0.0
+        for (sk_, nk_), (sp_, _), xx in zip(out_k, out_p, wavs):
+            fr = n_stft_frames_clamped(len(xx), stft_cfg)
+            core = slice(nfft, min(len(xx), (fr - 1) * hop + nfft) - nfft)
+            peak = float(np.abs(xx).max())
+            wave_err = max(wave_err, float(np.abs(sk_ - sp_)[core].max()) / peak)
+            part_err = max(part_err, float(np.abs(sk_ + nk_ - xx)[core].max()) / peak)
+        log(f"phase 11: {'bf16' if fast else 'f32'} frozen chain, a served batch of 8 against "
+            f"the same batch through enhance_batch with the plain chain: max |s_k - s_p| / peak "
+            f"{wave_err:.3e} (limit 1e-3), Wiener partition {part_err:.3e} (limit 1e-4)")
+        check(wave_err < 1e-3 and part_err < 1e-4, f"served frozen batch, fast={fast}")
+
+    # ---- 11g. the conditional service: M2-info with self-soft labels
+    v5 = init_xavier_(DisentangledVAE(513, 1, 16, (128, 128)), torch.Generator().manual_seed(SEED))
+    csvc = EnhanceService(v5, "v5", EnhancerConfig(y_mode="dec_only"),
+                          ServeConfig(batch_size=bsz, warmup_buckets=()))
+    try:
+        outs = [None] * bsz
+
+        def submit(i):
+            outs[i] = csvc.submit(wavs[i], timeout=600)
+
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(bsz)]
+        mh_chain.launches = mh_chain.launches_mma = stft_power.launches = 0
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        n_chain, n_cond, n_stft = mh_chain.launches, mh_chain.launches_mma, stft_power.launches
+        batches_v5 = csvc.stats_snapshot()["batches"]
+    finally:
+        csvc.close()
+    check(all(o is not None and partition(o[0], o[1], x, pcm=False) <= 1.0
+              for o, x in zip(outs, wavs)), "M2-info served outputs, Wiener partition")
+    check(n_stft == batches_v5 and n_chain == n_cond == batches_v5 * want,
+          f"M2-info: {n_stft} stft_power, {n_chain} chain launches in {batches_v5} batches")
+    log(f"phase 11: M2-info DisentangledVAE(513, 1, 16, (128, 128)) service, self-soft labels: "
+        f"8 requests in {batches_v5} batch(es), {n_stft} stft_power launch(es) (one per batch), "
+        f"{n_cond} conditioned bf16-body chain launches (expected {batches_v5} x {want})")
+    t_max = max(len(x) for x in wavs[:bsz])
+    batch = np.stack([np.pad(x, (0, t_max - len(x))) for x in wavs[:bsz]]).astype(np.float32)
+    xp = pad_signal(torch.from_numpy(batch).to(dev), stft_cfg).contiguous()
+    stft_entry = time_stft(xp, False, "serving self-soft", n_stft, cuda_ms, tag, phase=11)
+
+    # ---- times: a served batch's dispatch and collect, a part-full batch,
+    # and the chain's E-step segment at the served rows
+    enh8 = Enhancer(copy.deepcopy(model), EnhancerConfig())
+    full = list(wavs[:bsz])
+    part_full = [wavs[0]] + [np.zeros(nfft, np.float32)] * (bsz - 1)  # 1 request + 7 fillers
+    enh8.enhance_batch(full, seed=SEED)
+
+    def split(ws):
+        sync()
+        t0 = clock()
+        handle = enh8.dispatch(ws, seed=SEED)
+        t1 = clock()
+        enh8.collect(handle)
+        return t1 - t0, clock() - t1
+
+    split_full = np.median([split(full) for _ in range(3)], axis=0)
+    split_part = np.median([split(part_full) for _ in range(3)], axis=0)
+    d_s, c_s = split_full
+    log(f"phase 11: a served batch (8 x 320 frames) through Enhancer.dispatch / collect "
+        f"(medians of 3): dispatch returns after {d_s:.4f} s, collect then waits {c_s:.4f} s "
+        f"for the card, so the worker's 2-deep pipeline can overlap at most {c_s:.4f} s of "
+        f"the next batch's host work; the batch {d_s + c_s:.4f} s; 1 request + 7 fillers "
+        f"{sum(split_part):.4f} s (dispatch {split_part[0]:.4f} s), ratio "
+        f"{sum(split_part) / (d_s + c_s):.3f} of the full batch {tag}")
+
+    xw, x_scale, _, _, mask, _, n_pad, _ = enh8._prepare(full, None, None)
+    with torch.inference_mode():
+        x = xw.to(dev).float() * x_scale.to(dev)[:, None]
+        re, im = stft_realimag(x, stft_cfg)
+        x2b = (re * re + im * im)[:, :n_pad].contiguous()
+        z0b = enh8.model.encode(x2b, sample=False)[1]
+    f, l = x2b.shape[-1], z0b.shape[-1]
+    rows = bsz * n_pad
+    w_, h_, g_ = init_nmf(torch.Generator(device=dev).manual_seed(SEED), bsz, n_pad, f,
+                          mc.nmf_rank, mc.eps, device=dev)
+    vb_r = compute_vb(w_, h_).reshape(rows, f).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    n_burn, n_samp = mc.burnin_e_step, mc.nsamples_e_step
+    noise = make_chain_noise(n_burn + n_samp, rows, l, gen, dev)
+    args = (enh8.mats, x2b.reshape(rows, f), vb_r, g_.reshape(rows).contiguous(),
+            z0b.reshape(rows, l).contiguous(), None, noise, n_burn, n_samp, mc.var_rw, False,
+            True)
+    k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
+    p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
+    h1, h2 = enh8.mats[0].shape[1], enh8.mats[3].shape[1]
+    work_ = chain_work(rows, f, l, h1, h2, n_burn, n_samp, False)
+    b_ms, b_by = chain_bound_ms(work_, True)
+    fargs = (*args[:9], 0.0, False, True)
+    _, sk = run_mh_chain(*fargs)
+    _, sr = mh_chain_reference(*fargs)
+    sync()
+    err = float((sk - sr).abs().max())
+    said = agree(sk, sr, True, 1e-5, "frozen segment at the served rows")
+    log(f"phase 11: mh_chain bf16 body, E-step segment at the served rows ({bsz} x {n_pad} = "
+        f"{rows}) steps={n_burn}+{n_samp}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({work_[3] / 1e6:.1f} MB), kernel at "
+        f"{100 * b_ms / k_ms:.2f}% of bound; frozen segment kernel vs plain: max abs err "
+        f"{err:.3e}, {said} {tag}")
+    chain_entry = {"name": "mh_chain (serving)", "route": "cuda",
+                   "source": "dvae_tpu_torch/csrc/mh_chain.cu",
+                   "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": n_served,
+                   "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None}
+
+    # ---- 11h. the serving CLI as a subprocess: boot, one request, SIGTERM
+    ckpt = os.path.join(work, "m1.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    t0 = clock()
+    proc = subprocess.Popen([sys.executable, "-m", "dvae_tpu_torch.cli.serve", "--checkpoint",
+                             ckpt, "--port", str(port)],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        health = {}
+        while clock() - t0 < 240 and proc.poll() is None:
+            try:
+                health = json.loads(get(f"{base}/healthz", timeout=5))
+                if health.get("ready"):
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        t_ready = clock() - t0
+        check(health.get("ready") is True and health.get("platform") == "gpu",
+              f"cli.serve ready: {health}, exit {proc.poll()}")
+        status, resp = post(f"{base}/enhance?return=stereo", body(wavs[17]))
+        check(status == 200 and stereo_partition(resp, sent(wavs[17])) <= 1.0,
+              "cli.serve answered")
+        t1 = clock()
+        proc.send_signal(signal.SIGTERM)
+        out, err_txt = proc.communicate(timeout=120)
+        t_exit = clock() - t1
+        check(proc.returncode == 0 and "drained, stopping" in out,
+              f"cli.serve exit {proc.returncode}: {err_txt[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    boot = health["boot"]
+    phases = {k: v["dur_s"] for k, v in boot["phases"].items()}
+    log(f"phase 11: python -m dvae_tpu_torch.cli.serve --checkpoint <m1.pt>: /healthz ready "
+        f"{t_ready:.2f} s after spawn (boot phases {phases} s, port bound at "
+        f"{boot['marks'].get('port_bound')} s after process start), one request answered, "
+        f"SIGTERM drained and exited 0 in {t_exit:.2f} s {tag}")
+
+    # ---- 11i. the long-form CLI on a 30 s file
+    long_dir = os.path.join(work, "long")
+    os.makedirs(long_dir)
+    write_wav(os.path.join(long_dir, "long.wav"), long_x, FS)
+    mh_chain.launches = 0
+    t0 = clock()
+    enhance_wav.main([long_dir, "--checkpoint", ckpt, "--chunk-seconds", "4",
+                      "--output-dir", os.path.join(work, "long_out")])
+    wall_cli = clock() - t0
+    x_file = read_wav(os.path.join(long_dir, "long.wav"))[0]
+    s = read_wav(os.path.join(work, "long_out", "long_s_est.wav"))[0]
+    n = read_wav(os.path.join(work, "long_out", "long_n_est.wav"))[0]
+    groups = -(-len(chunk_spans(len(x_file), FS, hop, 4.0, 1.0)) // 4)
+    part = partition(s, n, x_file)
+    check(part <= 1.0 and mh_chain.launches == groups * want,
+          f"enhance_wav --chunk-seconds 4: partition {part}, {mh_chain.launches} launches")
+    log(f"phase 11: enhance_wav --chunk-seconds 4 on a 30 s wav: {groups} dispatches of up to "
+        f"4 chunks, {mh_chain.launches} chain launches, {wall_cli:.3f} s with the wav I/O; "
+        f"Wiener partition at {part:.3f} of its limit {tag}")
+    return [chain_entry, stft_entry]
 
 
 def main() -> int:
@@ -1373,6 +1816,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
         engine_entries = engines_phase(model, wavs, cleans, cfg.mcem, (x2b, z0b, maskb),
                                        cuda_ms, plain_chain, agree, tag, wall, work)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+        serving_entries = serving_phase(model, wavs, cuda_ms, plain_chain, agree, tag, work)
+    peem_profile(enh.mats, (x2b, z0b, maskb), cfg.mcem, tag)
 
     def chain_entry(name, fast, n):
         k_ms, p_ms, b_ms, b_by = times[fast, False]  # the E-step segment
@@ -1383,7 +1829,8 @@ def main() -> int:
 
     log(json.dumps({"kernels": [chain_entry("mh_chain", True, launches_mma),
                                 chain_entry("mh_chain_f32", False, launches_f32),
-                                *stft_entries, *cond_entries, *engine_entries]}))
+                                *stft_entries, *cond_entries, *engine_entries,
+                                *serving_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -10,7 +10,10 @@ labels: ``--y-source self-soft`` runs the model's own x->y classifier on
 the noisy mixture (v3/v4/v5); ``npy`` reads a ``<stem>_y.npy`` beside each
 input; ``ones`` / ``zeros`` are the constant-label ablations. Outputs are
 ``<stem>_s_est.wav`` / ``<stem>_n_est.wav`` (the Wiener split: s_est +
-n_est reconstructs the input), in one flat directory. ``--platform cpu``
+n_est reconstructs the input), in one flat directory. ``--chunk-seconds``
+enhances one file at a time in cross-faded chunks, ``--chunk-concurrency``
+chunks per dispatch, so device memory does not grow with the file's
+length (``enhance/longform.py``). ``--platform cpu``
 runs the plain PyTorch path on the CPU; the default is the CUDA card."""
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from dvae_tpu_torch.cli._family import (
 from dvae_tpu_torch.data.io import read_wav, resample, wav_sample_rate, write_wav
 from dvae_tpu_torch.device import resolve_device
 from dvae_tpu_torch.enhance.labeling import classify_method_of, constant_labels, self_soft_labels
+from dvae_tpu_torch.enhance.longform import chunk_spans, enhance_chunked
+from dvae_tpu_torch.enhance.mcem import fold_seed
 from dvae_tpu_torch.enhance.pipeline import _LATER, Enhancer, EnhancerConfig
 from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped
 
@@ -80,7 +85,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "model's 16 kHz (outputs stay at 16 kHz); without it a "
                          "mismatched file is an error")
     ap.add_argument("--chunk-seconds", type=float, default=None,
-                    help="bounded-memory mode for very long recordings (not served yet)")
+                    help="bounded-memory mode for very long recordings: split each file "
+                         "into chunks of this many seconds and cross-fade the overlaps; "
+                         "device memory stops growing with file length "
+                         "(enhance/longform.py)")
+    ap.add_argument("--chunk-overlap", type=float, default=1.0,
+                    help="cross-fade overlap in seconds for --chunk-seconds (at most half "
+                         "a chunk)")
+    ap.add_argument("--chunk-concurrency", type=int, default=4,
+                    help="chunks per device dispatch, the memory bound: resident state is "
+                         "chunk-concurrency x chunk-seconds of audio, whatever the file "
+                         "length")
     ap.add_argument("--overwrite", action="store_true",
                     help="re-enhance files whose outputs already exist "
                          "(default: resume-by-skip)")
@@ -95,10 +110,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                  "locate the training statistics in)")
     if args.y_source == "self-soft" and args.model_class in ("m2", "m2v2"):
         ap.error(f"{args.model_class} has no classifier; use --y-source npy/ones/zeros")
-    for flag, on, item in (("--chunk-seconds (long-form)", args.chunk_seconds, 11),
-                           ("--data-parallel", args.data_parallel, 14)):
-        if on:
-            ap.error(f"{flag}: " + _LATER.format(item))
+    if args.data_parallel:
+        ap.error("--data-parallel: " + _LATER.format(14))
+    if args.chunk_seconds:
+        if args.chunk_concurrency < 1:
+            ap.error("--chunk-concurrency must be >= 1")
+        try:
+            chunk_spans(1, StftConfig().fs, StftConfig().hop, args.chunk_seconds,
+                        args.chunk_overlap)
+        except ValueError as e:
+            ap.error(f"--chunk-overlap: {e}")
     return args
 
 
@@ -163,9 +184,35 @@ def main(argv=None) -> None:
             if args.overwrite
             or not ((out_dir / f"{names[i]}_s_est.wav").exists()
                     and (out_dir / f"{names[i]}_n_est.wav").exists())]
-    # batches of similar length: sort by file size
     order = sorted(todo, key=lambda i: (os.path.getsize(files[i]), str(files[i])))
-    chunks = [order[s:s + args.batch_size] for s in range(0, len(order), args.batch_size)]
+
+    def self_soft(wavs):
+        return self_soft_labels(enh.model, wavs, stft_cfg, args.y_dim, classify_method,
+                                norm=norm, norm_eps=enh.cfg.norm_eps)
+
+    n_done = 0
+    if args.chunk_seconds:
+        # bounded-memory mode: one file at a time, its chunks are the device
+        # batches (chunk-concurrency per dispatch)
+        for j, i in enumerate(order):
+            x = load_input(files[i])
+            y_full, labeler = None, None
+            if conditional:
+                if args.y_source == "self-soft":
+                    labeler = self_soft
+                else:
+                    y_full = labels_for(files[i], x)
+            s_hat, n_hat = enhance_chunked(
+                enh, x, y=y_full, labeler=labeler, chunk_seconds=args.chunk_seconds,
+                overlap_seconds=args.chunk_overlap,
+                max_concurrent_chunks=args.chunk_concurrency, seed=fold_seed(args.seed, j))
+            write_wav(out_dir / f"{names[i]}_n_est.wav", n_hat, stft_cfg.fs)
+            write_wav(out_dir / f"{names[i]}_s_est.wav", s_hat, stft_cfg.fs)
+            n_done += 1
+            print(f"enhanced {n_done}/{len(order)}")
+    # otherwise batches of similar length: sorted by file size
+    chunks = [] if args.chunk_seconds else [order[s:s + args.batch_size]
+                                            for s in range(0, len(order), args.batch_size)]
 
     def batches():
         for chunk in chunks:
@@ -173,14 +220,11 @@ def main(argv=None) -> None:
             ys = None
             if conditional:
                 if args.y_source == "self-soft":
-                    ys = self_soft_labels(enh.model, wavs, stft_cfg, args.y_dim,
-                                          classify_method, norm=norm,
-                                          norm_eps=enh.cfg.norm_eps)
+                    ys = self_soft(wavs)
                 else:
                     ys = [labels_for(files[i], w) for i, w in zip(chunk, wavs)]
             yield wavs, ys, None
 
-    n_done = 0
     for chunk, out in zip(chunks, enh.enhance_stream(batches(), seed=args.seed)):
         for i, (s_hat, n_hat) in zip(chunk, out):
             write_wav(out_dir / f"{names[i]}_n_est.wav", n_hat, stft_cfg.fs)

@@ -71,7 +71,8 @@ class EnhancerConfig:
     ``y_mode``: ``"none"`` (M1), ``"enc_dec"`` (M2's ``CVAE``, whose
     encoder sees ``[x; y]``) and ``"dec_only"`` (``CVAE_v2``-``v4`` and
     ``DisentangledVAE``); every ``engine`` (:data:`ENGINES`) and every
-    ``ablation``; ``aot_dir`` other than None raises NotImplementedError.
+    ``ablation``; ``aot_dir`` other than None raises NotImplementedError (the
+    AOT executable cache is XLA-specific).
     ``ablation``: ``"clean_z"`` starts the latent from the clean
     spectrogram's encoding instead of the mixture's, ``"clean_z_nomcem"``
     pins it there (``run_em_fixed_z``, whatever the engine); both need the
@@ -112,10 +113,11 @@ class Enhancer:
             raise ValueError(f"bad ablation {cfg.ablation!r}")
         if cfg.engine not in ENGINES:
             raise ValueError(f"bad engine {cfg.engine!r}")
-        for name, value, served, item in (
-                ("aot_dir", cfg.aot_dir, None, 11), ("mesh", mesh, None, 14)):
-            if value != served:
-                raise NotImplementedError(f"{name}={value!r}: " + _LATER.format(item))
+        if cfg.aot_dir is not None:
+            raise NotImplementedError(f"aot_dir={cfg.aot_dir!r}: the AOT executable cache is "
+                                      "XLA-specific and is not ported")
+        if mesh is not None:
+            raise NotImplementedError(f"mesh={mesh!r}: " + _LATER.format(14))
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()

@@ -82,7 +82,8 @@ def test_enhance_wav_writes_the_wiener_split(tree, capsys, family, source):
 @pytest.mark.parametrize("args,message", [
     (["--model-class", "m2", "--y-source", "self-soft"], "m2 has no classifier"),
     (["--model-class", "m2v2"], "m2v2 has no classifier"),
-    (["--chunk-seconds", "10"], "A11"),
+    (["--chunk-seconds", "2", "--chunk-overlap", "1.5"], "at most half the chunk"),
+    (["--chunk-seconds", "2", "--chunk-concurrency", "0"], "--chunk-concurrency must be >= 1"),
     (["--engine", "gibbs"], "invalid choice: 'gibbs'"),
     (["--data-parallel"], "A14"),
     (["--std-norm"], "--std-norm requires --norm-h5"),
@@ -94,6 +95,35 @@ def test_enhance_wav_argument_errors(tmp_path, capsys, args, message):
         enhance_wav.main([str(tmp_path), *ckpt, "--platform", "cpu", *args])
     assert e.value.code == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("family,source", [("m1", None), ("v5", "self-soft"), ("m2", "npy")])
+def test_enhance_wav_chunked_writes_the_wiener_split(tmp_path, capsys, family, source):
+    """--chunk-seconds: a 2.7 s file in 0.5 s chunks, two per dispatch;
+    s + n = x over the whole file, across the cross-faded seams."""
+    rng = np.random.default_rng(3)
+    n = int(2.7 * 16000)
+    t = np.arange(n) / 16000
+    (tmp_path / "in").mkdir()
+    write_wav(tmp_path / "in" / "long.wav",
+              0.3 * np.sin(2 * np.pi * 200 * t) + 0.05 * rng.standard_normal(n), 16000)
+    np.save(tmp_path / "in" / "long_y.npy", (rng.uniform(size=n // 256 + 8) > 0.5)
+            .astype(np.float32))
+    torch.manual_seed(1)
+    torch.save(MODELS[family]().state_dict(), tmp_path / f"{family}.pt")
+    enhance_wav.main([str(tmp_path / "in"), "--checkpoint", str(tmp_path / f"{family}.pt"),
+                      "--model-class", family, "--output-dir", str(tmp_path / "out"),
+                      "--platform", "cpu", *BUDGET, "--chunk-seconds", "0.5",
+                      "--chunk-overlap", "0.1", "--chunk-concurrency", "2",
+                      *(["--y-source", source] if source else [])])
+    x, _ = read_wav(tmp_path / "in" / "long.wav")
+    s, fs = read_wav(tmp_path / "out" / "long_s_est.wav")
+    nn, _ = read_wav(tmp_path / "out" / "long_n_est.wav")
+    assert fs == 16000 and len(s) == len(nn) == n
+    nfft = StftConfig().nfft
+    np.testing.assert_allclose((s + nn)[nfft:-nfft], x[nfft:-nfft], atol=3 / 32768)
+    assert np.abs(s).max() > 1e-3
+    assert "done: 1 files" in capsys.readouterr().out
 
 
 def test_enhance_wav_fails_fast_on_inputs(tree):

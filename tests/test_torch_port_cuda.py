@@ -26,6 +26,7 @@ or log(eps).
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -40,9 +41,11 @@ from dvae_tpu_torch.enhance.mh_chain import (
     mh_chain_reference,
     run_mh_chain,
 )
-from dvae_tpu_torch.models import VAE
+from dvae_tpu_torch.enhance.pipeline import EnhancerConfig
+from dvae_tpu_torch.models import VAE, DisentangledVAE
 from dvae_tpu_torch.ops import log_power_spectrogram, power_spectrogram, stft_power
 from dvae_tpu_torch.ops.stft import StftConfig, padded_length
+from dvae_tpu_torch.serving import EnhanceService, ServeConfig
 
 F, L = 513, 16
 PRECISIONS = pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
@@ -406,3 +409,83 @@ def test_mh_chain_dispatch_raises_off_cpu_and_cuda(fast):
                      torch.zeros((32, L), device="meta"), None,
                      torch.zeros((1, 32, L + 1), device="meta"), 0, 1, 0.0, fast_decoder=fast)
     assert mh_chain.launches == before
+
+
+def _noisy_wav(seconds, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    return (0.3 * np.sin(2 * np.pi * 180 * t) + 0.05 * rng.standard_normal(len(t))).astype(
+        np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["m1", "v5-self-soft"])
+def test_cuda_service_answers_through_the_kernels(cuda, monkeypatch, family):
+    """A CUDA EnhanceService answers one request with exactly niter + 1
+    launches of the MH-chain kernel (bf16 body) and, for a self-soft batch,
+    one STFT power launch; the plain chain is never reached."""
+    def plain(*args, **kw):
+        raise AssertionError("the plain chain ran on CUDA tensors")
+
+    monkeypatch.setattr(mh_chain, "mh_chain_reference", plain)
+    cfg = McemConfig(niter=5)
+    torch.manual_seed(0)
+    if family == "m1":
+        model, enh = VAE(F, L, (128, 128)), EnhancerConfig(mcem=cfg)
+    else:
+        model, enh = DisentangledVAE(F, 1, L, (128, 128)), EnhancerConfig(mcem=cfg,
+                                                                          y_mode="dec_only")
+    svc = EnhanceService(model, family.split("-")[0], enh,
+                         ServeConfig(batch_size=4, warmup_buckets=()))
+    try:
+        assert svc.device.type == "cuda"
+        x = _noisy_wav(2.0)
+        chain, mma, stft = mh_chain.launches, mh_chain.launches_mma, stft_power.launches
+        s, n = svc.submit(x, timeout=600)
+        assert mh_chain.launches - chain == mh_chain.launches_mma - mma == cfg.niter + 1
+        assert stft_power.launches - stft == (family != "m1")
+        assert s.shape == n.shape == x.shape and np.isfinite(s).all()
+        assert np.median(np.abs(s + n - x)[1024:-1024]) < 5e-3
+    finally:
+        svc.close()
+
+
+@pytest.mark.cuda
+def test_cuda_service_warmup_builds_the_kernels_or_fails(cuda, monkeypatch):
+    """Warmup on the card runs the kernels (building them when missing) and
+    then reports ready; when the build fails, the warmup fails, and nothing
+    is served through the plain chain."""
+    torch.manual_seed(0)
+    cfg = EnhancerConfig(mcem=McemConfig(niter=3))
+    svc = EnhanceService(VAE(F, L, (128, 128)), "m1", cfg,
+                         ServeConfig(batch_size=2, warmup_buckets=(64,)))
+    try:
+        before = mh_chain.launches
+        svc.warmup()
+        assert svc.warm_buckets == [64] and svc.warmup_error is None
+        assert mh_chain.launches - before == 4
+        assert mh_chain.build_library() is not None
+    finally:
+        svc.close()
+
+    def no_nvcc():
+        raise RuntimeError("nvcc failed for mh_chain.cu")
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain chain ran on CUDA tensors")
+
+    monkeypatch.setattr(mh_chain, "build_library", no_nvcc)
+    monkeypatch.setattr(mh_chain, "mh_chain_reference", plain)
+    svc = EnhanceService(VAE(F, L, (128, 128)), "m1", cfg,
+                         ServeConfig(batch_size=2, warmup_buckets=(64,)))
+    try:
+        done = []
+        svc.warmup_async(on_done=done.append)
+        assert svc._worker.is_alive()
+        deadline = time.monotonic() + 60
+        while not done and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert done and "nvcc failed" in str(done[0]) and svc.warmup_error is done[0]
+        assert not svc.ready.is_set() and svc.warm_buckets == []
+    finally:
+        svc.close()

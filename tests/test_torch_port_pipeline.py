@@ -125,7 +125,7 @@ def test_default_device_without_cuda_raises(models):
 
 @pytest.mark.parametrize("field,value", [("aot_dir", "/nonexistent")])
 def test_unserved_config_values_raise(models, field, value):
-    with pytest.raises(NotImplementedError, match="later PR"):
+    with pytest.raises(NotImplementedError, match="XLA-specific and is not ported"):
         Enhancer(models[2], EnhancerConfig(**{field: value}), device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
         Enhancer(models[2], device="cpu", mesh=object())
