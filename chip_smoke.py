@@ -53,7 +53,8 @@ Phases, in order; any failure exits non-zero:
    classifier, whose spectrogram is one STFT power launch, and niter + 1
    bf16-body chain launches with the labels folded into a row bias; M2
    (``CVAE(513, 513, 16, (128, 128))``, ``enc_dec``) with IBM labels of the
-   clean parts, niter + 1 launches; outputs finite. Then, for both models
+   clean parts (the port's ``clean_speech_ibm``), niter + 1 launches;
+   outputs finite. Then, for both models
    and in both bodies, the frozen-chain config through the kernel and the
    plain chain, with phase 3's limits and the Wiener partition; then times:
    both ``enhance_batch`` walls beside phase 4's M1, the labeling, the
@@ -97,7 +98,24 @@ Phases, in order; any failure exits non-zero:
    the self-soft batch; ``python -m dvae_tpu_torch.cli.serve`` as a
    subprocess (ready, one request, SIGTERM exits 0); and
    ``enhance_wav --chunk-seconds 4`` on a 30 s wav (the partition, one
-   chain run per dispatch of 4 chunks).
+   chain run per dispatch of 4 chunks);
+12. training the conditional families at full width, after phase 11 (and
+   before phase 10's profiler run): phase 6's utterances, gated so that a
+   VAD finds silence, become a VAD and an IBM labelled frame set (39,721 +
+   4,981 frames) through one STFT power launch per frame set, the labels
+   held against the plain path on the card (VAD exactly; IBM on all but
+   1e-4 of the bins, each within 1e-3 dB of its threshold); five models
+   train 3 epochs each at batch 128, Adam 1e-4 (``CVAE`` on VAD and on IBM
+   with ``fit_vae(conditional=True)``, ``DisentangledVAE`` and ``CVAE_v4``
+   (``hardlabel``) with ``fit_adversarial`` at the published alpha 0, beta
+   10, gamma 1, ``CVAE_v3`` with ``fit_semisup(uloss, alpha=10)``): finite
+   metrics, one ``.pt`` per epoch, the ELBO falling; the best M2-info
+   ``.pt`` (self-soft labels, one STFT power launch) and M2 IBM ``.pt``
+   enhance the phase-3 batch through niter + 1 bf16-body chain launches
+   each; then each train step's time at batch 128 (host clock over an
+   epoch, CUDA events over 50 warm steps) beside M1's, the chain's E-step
+   segment at the trained M2-info's fold and the STFT power kernel at the
+   labelled frame set, each with the card's name and power limit.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -551,7 +569,7 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
                        ("device_data", loop._device_rows(train_ds, dev))):
         def run(n):
             count = 0
-            for x in itertools.islice(rows(128, order, True), n):
+            for x, _ in itertools.islice(rows(128, order, True), n):
                 step(x, generator=g)
                 count += 1
             return count
@@ -577,16 +595,87 @@ def training_phases(work: str, mix_wavs, cuda_ms, tag: str) -> dict:
 
 
 def ibm_labels(clean: np.ndarray, n_frames: int) -> np.ndarray:
-    """Binary IBM labels (n_frames, 513) from the clean part: the bins
-    within 50 dB of the utterance's loudest, as the JAX package's
-    ``clean_speech_ibm`` marks them (plain spectrogram, on the CPU)."""
+    """Binary IBM labels (n_frames, 513) of the clean part: the port's
+    ``clean_speech_ibm`` of its magnitude spectrogram (plain, on the CPU)."""
     import torch
 
     from dvae_tpu_torch.ops.stft import power_spectrogram
+    from dvae_tpu_torch.ops.targets import clean_speech_ibm
 
-    p = power_spectrogram(torch.from_numpy(clean.astype(np.float32))).numpy()[:n_frames]
-    db = 20.0 * np.log10(np.sqrt(p) + 1e-8)
-    return (db > db.max() - 50.0).astype(np.float32)
+    p = power_spectrogram(torch.from_numpy(clean.astype(np.float32)))
+    return clean_speech_ibm(torch.sqrt(p)).numpy()[:n_frames]
+
+
+def cond_batch_inputs(enh, wavs, ys):
+    """A batch as a conditioned ``Enhancer``'s chain sees it, on the card:
+    (x2, z0, mask, y), the labels ``ys`` padded as ``_prepare`` pads them."""
+    import torch
+
+    from dvae_tpu_torch.ops.stft import StftConfig, stft_realimag
+
+    dev = torch.device("cuda")
+    xw, x_scale, _, _, mask, y, n_pad, _ = enh._prepare(wavs, ys, None)
+    with torch.inference_mode():
+        x = xw.to(dev).float() * x_scale.to(dev)[:, None]
+        re, im = stft_realimag(x, StftConfig())
+        x2 = (re * re + im * im)[:, :n_pad].contiguous()
+        y = y.to(dev)
+        enc_in = torch.cat([x2, y], -1) if enh.cfg.y_mode == "enc_dec" else x2
+        z0 = enh.model.encode(enc_in, sample=False)[1]
+    return x2, z0, mask.to(dev), y
+
+
+def conditioned_segment(mats, inputs, mc, cuda_ms, agree) -> dict:
+    """B1's bf16 body on one E-step segment at a batch's shape (``inputs``
+    from :func:`cond_batch_inputs`), the labels folded into a row bias:
+    kernel and plain times, the bound, and a frozen segment held against
+    the plain chain."""
+    import torch
+
+    from dvae_tpu_torch.enhance.mh_chain import (
+        fold_conditioning,
+        make_chain_noise,
+        mh_chain_reference,
+        run_mh_chain,
+    )
+    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf
+
+    dev, f, l = torch.device("cuda"), 513, 16
+    x2b, z0b, maskb, yb = inputs
+    b, n_pad = maskb.shape
+    rows = b * n_pad
+    w_, h_, g_ = init_nmf(torch.Generator(device=dev).manual_seed(SEED), b, n_pad, f,
+                          mc.nmf_rank, mc.eps, device=dev)
+    vb_r = compute_vb(w_, h_).reshape(rows, f).contiguous()
+    g_r, x2_r, z_r = g_.reshape(rows).contiguous(), x2b.reshape(rows, f), z0b.reshape(rows, l)
+    cm = fold_conditioning(mats, yb.reshape(rows, -1), True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    n_burn, n_samp = mc.burnin_e_step, mc.nsamples_e_step
+    noise = make_chain_noise(n_burn + n_samp, rows, l, gen, dev)
+    args = (cm, x2_r, vb_r, g_r, z_r.contiguous(), None, noise, n_burn, n_samp, mc.var_rw,
+            False, True)
+    k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
+    p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
+    h1, h2 = cm[0].shape[1], cm[3].shape[1]
+    work = chain_work(rows, f, l, h1, h2, n_burn, n_samp, False)
+    work = (*work[:3], work[3] + 4 * rows * h1)  # plus the row bias, read once
+    b_ms, b_by = chain_bound_ms(work, True)
+    fargs = (*args[:9], 0.0, False, True)
+    _, sk = run_mh_chain(*fargs)
+    _, sr = mh_chain_reference(*fargs)
+    torch.cuda.synchronize()
+    return {"k_ms": k_ms, "p_ms": p_ms, "b_ms": b_ms, "b_by": b_by, "bytes": work[3],
+            "max_abs": float((sk - sr).abs().max()), "rows": rows, "h1": h1,
+            "steps": f"{n_burn}+{n_samp}",
+            "said": agree(sk, sr, True, 1e-5, "conditioned frozen segment at main-path shape")}
+
+
+def chain_entry(name: str, launches: int, seg: dict) -> dict:
+    """B1's entry of the kernels line from a :func:`conditioned_segment`."""
+    return {"name": name, "route": "cuda", "source": "dvae_tpu_torch/csrc/mh_chain.cu",
+            "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": launches,
+            "max_abs_err": seg["max_abs"], "ms": seg["k_ms"], "plain_ms": seg["p_ms"],
+            "bound_ms": seg["b_ms"], "bound_by": seg["b_by"], "library_ms": None}
 
 
 def conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag: str,
@@ -599,28 +688,16 @@ def conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag: str,
     from dvae_tpu_torch.enhance import mh_chain
     from dvae_tpu_torch.enhance.labeling import self_soft_labels
     from dvae_tpu_torch.enhance.mcem import McemConfig, run_mcem
-    from dvae_tpu_torch.enhance.mh_chain import (
-        fold_conditioning,
-        make_chain_noise,
-        mh_chain_reference,
-        run_mh_chain,
-    )
-    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf
+    from dvae_tpu_torch.enhance.mh_chain import fold_conditioning
     from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
     from dvae_tpu_torch.models import CVAE, DisentangledVAE
     from dvae_tpu_torch.models.blocks import init_xavier_
     from dvae_tpu_torch.ops import stft_power
-    from dvae_tpu_torch.ops.stft import (
-        StftConfig,
-        n_stft_frames_clamped,
-        pad_signal,
-        stft_realimag,
-    )
+    from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped, pad_signal
 
     dev, sync = torch.device("cuda"), torch.cuda.synchronize
     stft_cfg, mc = StftConfig(), McemConfig()
     want = mc.niter + 1
-    f, l = 513, 16
 
     def finite(out):
         return len(out) == len(wavs) and all(
@@ -670,19 +747,8 @@ def conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag: str,
     check(finite(out) and np.isfinite(enh_ibm.last_cost).all(), "M2 IBM outputs finite")
 
     # ---- 9c. frozen chain, kernel vs plain, both bodies, both models
-    def batch_inputs(enh, ys):
-        xw, x_scale, _, _, mask, y, n_pad, _ = enh._prepare(wavs, ys, None)
-        with torch.inference_mode():
-            x = xw.to(dev).float() * x_scale.to(dev)[:, None]
-            re, im = stft_realimag(x, stft_cfg)
-            x2 = (re * re + im * im)[:, :n_pad].contiguous()
-            y = y.to(dev)
-            enc_in = torch.cat([x2, y], -1) if enh.cfg.y_mode == "enc_dec" else x2
-            z0 = enh.model.encode(enc_in, sample=False)[1]
-        return x2, z0, mask.to(dev), y
-
     models = {"M2-info self-soft": (enh_v5, ys_v5), "M2 IBM": (enh_ibm, ys_ibm)}
-    inputs = {name: batch_inputs(*m) for name, m in models.items()}
+    inputs = {name: cond_batch_inputs(enh, wavs, ys) for name, (enh, ys) in models.items()}
     nfft, hop = stft_cfg.nfft, stft_cfg.hop
     frames = [n_stft_frames_clamped(len(x), stft_cfg) for x in wavs]
     for name, (enh, ys) in models.items():
@@ -744,50 +810,23 @@ def conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag: str,
         f"{sum(frames)} frames, copy back) wall {', '.join(f'{1e3 * t:.3f}' for t in w)} ms "
         f"(median {1e3 * float(np.median(w)):.3f} ms) {tag}")
 
-    x2b, z0b, maskb, yb = inputs["M2-info self-soft"]
-    b, n_pad = maskb.shape
-    rows = b * n_pad
-    w_, h_, g_ = init_nmf(torch.Generator(device=dev).manual_seed(SEED), b, n_pad, f,
-                          mc.nmf_rank, mc.eps, device=dev)
-    vb_r = compute_vb(w_, h_).reshape(rows, f).contiguous()
-    g_r, x2_r, z_r = g_.reshape(rows).contiguous(), x2b.reshape(rows, f), z0b.reshape(rows, l)
-    cm = fold_conditioning(enh_v5.mats, yb.reshape(rows, -1), True)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    n_burn, n_samp = mc.burnin_e_step, mc.nsamples_e_step
-    noise = make_chain_noise(n_burn + n_samp, rows, l, gen, dev)
-    args = (cm, x2_r, vb_r, g_r, z_r.contiguous(), None, noise, n_burn, n_samp, mc.var_rw,
-            False, True)
-    k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
-    p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
-    h1, h2 = cm[0].shape[1], cm[3].shape[1]
-    work = chain_work(rows, f, l, h1, h2, n_burn, n_samp, False)
-    work = (*work[:3], work[3] + 4 * rows * h1)  # plus the row bias, read once
-    b_ms, b_by = chain_bound_ms(work, True)
-    fargs = (*args[:9], 0.0, False, True)
-    _, sk = run_mh_chain(*fargs)
-    _, sr = mh_chain_reference(*fargs)
-    sync()
-    max_abs = float((sk - sr).abs().max())
-    said = agree(sk, sr, True, 1e-5, "conditioned frozen segment at main-path shape")
-    _, ibm_y = inputs["M2 IBM"][2:]
-    fold_ms = cuda_ms(lambda: fold_conditioning(enh_ibm.mats, ibm_y.reshape(rows, -1), True),
-                      reps=20, warm=2)
-    log(f"phase 9: mh_chain bf16 body, conditioned E-step segment (row bias (rows, {h1})) "
-        f"rows={rows} steps={n_burn}+{n_samp}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms by {b_by} ({work[3] / 1e6:.1f} MB with the row bias), kernel at "
-        f"{100 * b_ms / k_ms:.2f}% of bound; frozen segment kernel vs plain: max abs err "
-        f"{max_abs:.3e}, {said}; the IBM fold (y_dim 513, once per batch) {fold_ms:.4f} ms {tag}")
+    seg = conditioned_segment(enh_v5.mats, inputs["M2-info self-soft"], mc, cuda_ms, agree)
+    ibm_y = inputs["M2 IBM"][3]
+    fold_ms = cuda_ms(lambda: fold_conditioning(enh_ibm.mats, ibm_y.reshape(seg["rows"], -1),
+                                                True), reps=20, warm=2)
+    log(f"phase 9: mh_chain bf16 body, conditioned E-step segment (row bias (rows, "
+        f"{seg['h1']})) rows={seg['rows']} steps={seg['steps']}: kernel {seg['k_ms']:.4f} ms, "
+        f"plain {seg['p_ms']:.4f} ms, bound {seg['b_ms']:.4f} ms by {seg['b_by']} "
+        f"({seg['bytes'] / 1e6:.1f} MB with the row bias), kernel at "
+        f"{100 * seg['b_ms'] / seg['k_ms']:.2f}% of bound; frozen segment kernel vs plain: max "
+        f"abs err {seg['max_abs']:.3e}, {seg['said']}; the IBM fold (y_dim 513, once per batch) "
+        f"{fold_ms:.4f} ms {tag}")
 
     t_max = max(len(x) for x in wavs)
     batch = np.stack([np.pad(x, (0, t_max - len(x))) for x in wavs]).astype(np.float32)
     xp = pad_signal(torch.from_numpy(batch).to(dev), stft_cfg).contiguous()
     stft_entry = time_stft(xp, False, "self-soft labels", n_stft, cuda_ms, tag, phase=9)
-    chain_entry = {"name": "mh_chain (conditioned)", "route": "cuda",
-                   "source": "dvae_tpu_torch/csrc/mh_chain.cu",
-                   "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": n_v5_mma,
-                   "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "library_ms": None}
-    return [chain_entry, stft_entry]
+    return [chain_entry("mh_chain (conditioned)", n_v5_mma, seg), stft_entry]
 
 
 def sweep_tree(root: str, count: int, seed: int):
@@ -1437,7 +1476,7 @@ def serving_phase(model, wavs, cuda_ms, plain_chain, agree, tag: str, work: str)
         f"{b_ms:.4f} ms by {b_by} ({work_[3] / 1e6:.1f} MB), kernel at "
         f"{100 * b_ms / k_ms:.2f}% of bound; frozen segment kernel vs plain: max abs err "
         f"{err:.3e}, {said} {tag}")
-    chain_entry = {"name": "mh_chain (serving)", "route": "cuda",
+    served_entry = {"name": "mh_chain (serving)", "route": "cuda",
                    "source": "dvae_tpu_torch/csrc/mh_chain.cu",
                    "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": n_served,
                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -1507,7 +1546,235 @@ def serving_phase(model, wavs, cuda_ms, plain_chain, agree, tag: str, work: str)
     log(f"phase 11: enhance_wav --chunk-seconds 4 on a 30 s wav: {groups} dispatches of up to "
         f"4 chunks, {mh_chain.launches} chain launches, {wall_cli:.3f} s with the wav I/O; "
         f"Wiener partition at {part:.3f} of its limit {tag}")
-    return [chain_entry, stft_entry]
+    return [served_entry, stft_entry]
+
+
+def gated(clean: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """``clean`` switched off in 0.2-0.8 s stretches, so that a VAD finds
+    frames without speech (its length, and so its frame count, kept)."""
+    edges = np.cumsum(rng.uniform(0.2, 0.8, 16) * FS).astype(int)
+    return (clean * (np.searchsorted(edges, np.arange(len(clean)), side="right") % 2 == 0)
+            ).astype(np.float32)
+
+
+def labelled_training_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str) -> list:
+    """Phase 12 on the card: labelled frame sets through B2, the conditional
+    trainers at full width, and two trained priors served through B1;
+    returns the kernels-line entries of this path."""
+    import itertools
+
+    import torch
+
+    from dvae_tpu_torch.data.builders import DEFAULT_STFT, build_frames, padded_batch
+    from dvae_tpu_torch.data.datasets import FrameDataset
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.labeling import self_soft_labels
+    from dvae_tpu_torch.enhance.mcem import McemConfig
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import CVAE, VAE, CVAE_v3, CVAE_v4, DisentangledVAE
+    from dvae_tpu_torch.ops import stft_power
+    from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped
+    from dvae_tpu_torch.ops.stft import power_spectrogram as plain_power
+    from dvae_tpu_torch.ops.targets import clean_speech_ibm, clean_speech_vad
+    from dvae_tpu_torch.train import checkpoint as ckpt
+    from dvae_tpu_torch.train import loop
+    from dvae_tpu_torch.train.loop import LoopConfig, fit_adversarial, fit_semisup, fit_vae
+    from dvae_tpu_torch.train.steps import (
+        adam,
+        init_adversarial_state,
+        make_adversarial_step,
+        make_semisup_step,
+        make_train_step,
+    )
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    # phase 6's utterances (so its frame-set sizes), gated
+    rng, gate_rng = np.random.default_rng(SEED + 1), np.random.default_rng(SEED + 12)
+    clean_train = [gated(c, gate_rng) for c, _ in synthetic_parts(rng, M1_TRAIN_UTTS)]
+    clean_valid = [gated(c, gate_rng) for c, _ in synthetic_parts(rng, M1_VALID_UTTS)]
+
+    # ---- 12a. labelled frame sets, one B2 launch each, labels against the
+    # plain path on the card
+    def plain_labels(utts, counts, labels):
+        """Each utterance alone: the port's clean_speech_vad of its padded
+        signal, or clean_speech_ibm of the plain matmul-DFT magnitude, with
+        the plain dB value's distance to its threshold."""
+        ys, margins = [], []
+        for u, n in zip(utts, counts):
+            x = (u.astype(np.float64) / np.abs(u).max()).astype(np.float32)  # as build_frames
+            x = torch.from_numpy(x).to(dev)
+            if labels == "vad_labels":
+                ys.append(clean_speech_vad(x, DEFAULT_STFT)[:n, None])
+                continue
+            mag = torch.sqrt(plain_power(x, DEFAULT_STFT))
+            db = 20.0 * torch.log10(mag + 1e-8)
+            ys.append(clean_speech_ibm(mag)[:n])
+            margins.append((db - (db.max() - 50.0))[:n])
+        cat = lambda t: torch.cat(t).cpu().numpy()  # noqa: E731
+        return cat(ys), (cat(margins) if margins else None)
+
+    sets, n_build = {}, 0
+    for labels in ("vad_labels", "ibm_labels"):
+        stft_power.launches = 0
+        t0 = time.perf_counter()
+        tr = build_frames(clean_train, labels=labels)
+        va = build_frames(clean_valid, labels=labels)
+        t_build = time.perf_counter() - t0
+        n = stft_power.launches
+        n_build += n
+        check(n == 2, f"{n} stft_power launches for 2 labelled frame sets")
+        check(np.isfinite(tr.x).all() and np.isfinite(tr.y).all() and (tr.std > 0).all(),
+              f"{labels} frame set finite")
+        n_off, n_bins, worst = 0, 0, 0.0
+        for fs, utts in ((tr, clean_train), (va, clean_valid)):
+            want_y, margin = plain_labels(utts, fs.counts, labels)
+            check(want_y.shape == fs.y.shape, f"{labels} shape {fs.y.shape}")
+            off = fs.y != want_y
+            n_off, n_bins = n_off + int(off.sum()), n_bins + off.size
+            if labels == "vad_labels":
+                check(not off.any(), f"VAD labels differ from the plain path on {off.sum()} frames")
+            elif off.any():
+                worst = max(worst, float(np.abs(margin[off]).max()))
+        if labels == "ibm_labels":
+            check(n_off <= 1e-4 * n_bins and worst < 1e-3,
+                  f"IBM labels: {n_off} of {n_bins} bins differ, up to {worst:.3e} dB off")
+        sets[labels] = (FrameDataset.from_arrays(tr.x, tr.y, tr.mean, tr.std),
+                        FrameDataset.from_arrays(va.x, va.y))
+        log(f"phase 12: {labels} frame sets {tr.x.shape} + {va.x.shape}, labels {tr.y.shape} "
+            f"({100 * tr.y.mean():.2f}% on), in {t_build:.3f} s, {n} stft_power launches (one "
+            f"per frame set); against the plain path on the card: {n_off} of {n_bins} labels "
+            f"differ" + (f", each within {worst:.3e} dB of its threshold (limit 1e-3 dB, "
+                         f"share limit 1e-4)" if labels == "ibm_labels" else " (exact)"))
+
+    # ---- 12b. five trainings, 3 epochs each
+    cfg = LoopConfig(batch_size=128, learning_rate=1e-4, end_epoch=M1_EPOCHS + 1, seed=SEED)
+    published = dict(alpha=0.0, beta=10.0, gamma=1.0)  # training_M2_info_vad.py:19-21
+    runs = {
+        "M2_VAD": (lambda: CVAE(513, 1, 16, (128, 128)), "vad_labels", "elbo",
+                   lambda m, tr, va, d: fit_vae(m, tr, va, d, "M2_VAD", conditional=True,
+                                                cfg=cfg)),
+        "M2_IBM": (lambda: CVAE(513, 513, 16, (128, 128)), "ibm_labels", "elbo",
+                   lambda m, tr, va, d: fit_vae(m, tr, va, d, "M2_IBM", conditional=True,
+                                                cfg=cfg)),
+        "M2_info": (lambda: DisentangledVAE(513, 1, 16, (128, 128)), "vad_labels", "enc",
+                    lambda m, tr, va, d: fit_adversarial(m, tr, va, d, "M2_info", cfg=cfg,
+                                                         **published)),
+        "M2v4_hardlabel": (lambda: CVAE_v4(513, 1, 16, (128, 128)), "vad_labels", "enc",
+                           lambda m, tr, va, d: fit_adversarial(
+                               m, tr, va, d, "M2v4_hardlabel", cfg=cfg, y_cond="hardlabel",
+                               **published)),
+        "M2v3_Uloss": (lambda: CVAE_v3(513, 1, 16, (128, 128)), "vad_labels", "loss",
+                       lambda m, tr, va, d: fit_semisup(m, tr, va, d, "M2v3_Uloss", "uloss",
+                                                        10.0, cfg=cfg)),
+    }
+    best = {}
+    for name, (make, labels, vkey, fit) in runs.items():
+        model_dir = os.path.join(work, name)
+        train_ds, valid_ds = sets[labels]
+        t0 = time.perf_counter()
+        _, hist = fit(make(), train_ds, valid_ds, model_dir)
+        wall = time.perf_counter() - t0
+        vals = [v for h in hist for part in ("train", "valid") for v in h[part].values()]
+        check(np.isfinite(vals).all(), f"{name}: metrics not finite")
+        pts = ckpt.checkpoints(model_dir, f"{name}_epoch_*.pt")
+        check(len(pts) == M1_EPOCHS, f"{name}: {len(pts)} .pt files for {M1_EPOCHS} epochs")
+        curve = "elbo" if vkey != "loss" else "objective"  # the semisup step's ELBO term
+        train_c = [round(h["train"][curve], 3) for h in hist]
+        valid_c = [round(h["valid"][curve], 3) for h in hist]
+        if vkey == "elbo":
+            check(valid_c[-1] < valid_c[0], f"{name}: validation ELBO did not fall")
+        elif vkey == "enc":
+            check(train_c[-1] < train_c[0], f"{name}: the elbo metric did not fall")
+        best[name] = ckpt.best_checkpoint(model_dir, name)
+        steps = M1_EPOCHS * -(-len(train_ds) // cfg.batch_size)
+        last = {k: round(v, 3) for k, v in hist[-1]["valid"].items()}
+        log(f"phase 12: {name} on {labels}: {steps} steps in {wall:.3f} s; {curve} per epoch "
+            f"train {train_c}, valid {valid_c}; valid {vkey} "
+            f"{[round(h['valid'][vkey], 3) for h in hist]}; last valid {last}; "
+            f"{len(pts)} .pt files, best {best[name].name}")
+
+    # ---- 12c. the trained M2-info and M2 IBM priors, served
+    mc = McemConfig()
+    want = mc.niter + 1
+
+    def served(model, y_mode, path, ys_fn, what):
+        enh = Enhancer(model, EnhancerConfig(y_mode=y_mode))
+        enh.reload(torch.load(path, map_location="cpu", weights_only=True))
+        mh_chain.launches = mh_chain.launches_mma = stft_power.launches = 0
+        ys = ys_fn(enh)
+        out = enh.enhance_batch(wavs, ys, seed=SEED)
+        n_b1, n_mma, n_b2 = mh_chain.launches, mh_chain.launches_mma, stft_power.launches
+        check(n_mma == n_b1 == want, f"{what}: {n_mma} bf16 body launches of {n_b1}, "
+                                     f"expected {want}")
+        check(len(out) == len(wavs) and np.isfinite(enh.last_cost).all() and all(
+            np.isfinite(a).all() and np.isfinite(b).all() for a, b in out),
+            f"{what}: outputs not finite")
+        log(f"phase 12: {path.name} ({what}) enhanced the phase-3 batch through {n_mma} "
+            f"bf16-body mh_chain launches (expected {want}) and {n_b2} stft_power; outputs "
+            f"finite, cost {enh.last_cost[0]:.5f} -> {enh.last_cost[-1]:.5f}")
+        return enh, ys, n_b1, n_b2
+
+    stft_cfg = StftConfig()
+    enh_v5, ys_v5, b1_v5, b2_v5 = served(
+        DisentangledVAE(513, 1, 16, (128, 128)), "dec_only", best["M2_info"],
+        lambda enh: self_soft_labels(enh.model, wavs, stft_cfg, 1, "classify_from_x"),
+        "M2-info, dec_only, self-soft labels")
+    check(b2_v5 == 1, f"{b2_v5} stft_power launches for one self-soft batch")
+    _, _, b1_ibm, _ = served(
+        CVAE(513, 513, 16, (128, 128)), "enc_dec", best["M2_IBM"],
+        lambda enh: [ibm_labels(c, n_stft_frames_clamped(len(c), stft_cfg)) for c in cleans],
+        "M2, enc_dec, IBM labels of the clean parts")
+
+    # ---- 12d. times: each train step at batch 128, host clock over an epoch
+    # and CUDA events over 50 warm steps
+    vad_train, _ = sets["vad_labels"]
+    ibm_train, _ = sets["ibm_labels"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def kinds():
+        m1 = VAE(513, 16, (128, 128)).to(dev)
+        yield "M1 ELBO", vad_train, make_train_step(m1, adam(m1.parameters()))
+        m2 = CVAE(513, 1, 16, (128, 128)).to(dev)
+        yield "M2 ELBO (VAD)", vad_train, make_train_step(m2, adam(m2.parameters()), True)
+        m2i = CVAE(513, 513, 16, (128, 128)).to(dev)
+        yield "M2 ELBO (IBM)", ibm_train, make_train_step(m2i, adam(m2i.parameters()), True)
+        v5 = DisentangledVAE(513, 1, 16, (128, 128)).to(dev)
+        yield "M2-info adversarial", vad_train, make_adversarial_step(
+            v5, *init_adversarial_state(v5), **published)
+        v3 = CVAE_v3(513, 1, 16, (128, 128)).to(dev)
+        yield "M2v3 semisup (uloss)", vad_train, make_semisup_step(
+            v3, adam(v3.parameters()), "uloss", 10.0)
+
+    for name, ds, step in kinds():
+        rows = loop._host_rows(ds, dev, labels=True)
+        for x, y in itertools.islice(rows(128, np.random.default_rng(SEED), True), 20):
+            step(x, y, generator=g)
+        sync()
+        t0, n_steps = time.perf_counter(), 0
+        for x, y in rows(128, np.random.default_rng(SEED + 1), True):
+            step(x, y, generator=g)
+            n_steps += 1
+        sync()
+        host_ms = (time.perf_counter() - t0) / n_steps * 1e3
+        x, y = next(rows(128))
+        ev_ms = cuda_ms(lambda: step(x, y, generator=g), reps=50, warm=5)
+        log(f"phase 12: {name} train step batch 128: {host_ms:.4f} ms host clock over an "
+            f"epoch of {n_steps} host-fed steps ({1e3 / host_ms:.1f} steps/s), {ev_ms:.4f} ms "
+            f"CUDA events over 50 warm steps on one batch {tag}")
+
+    # ---- the kernels at this path's launches
+    seg = conditioned_segment(enh_v5.mats, cond_batch_inputs(enh_v5, wavs, ys_v5), mc,
+                              cuda_ms, agree)
+    log(f"phase 12: mh_chain bf16 body, E-step segment of the trained M2-info (row bias (rows, "
+        f"{seg['h1']})) rows={seg['rows']} steps={seg['steps']}: kernel {seg['k_ms']:.4f} ms, "
+        f"plain {seg['p_ms']:.4f} ms, bound {seg['b_ms']:.4f} ms by {seg['b_by']}; frozen "
+        f"segment kernel vs plain: max abs err {seg['max_abs']:.3e}, {seg['said']} {tag}")
+    stft_entry = time_stft(padded_batch(clean_train)[0].to(dev), False, "labelled frame set",
+                           n_build, cuda_ms, tag, phase=12)
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all")
+    return [chain_entry("mh_chain (trained conditional priors)", b1_v5 + b1_ibm, seg),
+            stft_entry]
 
 
 def main() -> int:
@@ -1818,19 +2085,21 @@ def main() -> int:
                                        cuda_ms, plain_chain, agree, tag, wall, work)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
         serving_entries = serving_phase(model, wavs, cuda_ms, plain_chain, agree, tag, work)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+        labelled_entries = labelled_training_phase(wavs, cleans, cuda_ms, agree, tag, work)
     peem_profile(enh.mats, (x2b, z0b, maskb), cfg.mcem, tag)
 
-    def chain_entry(name, fast, n):
+    def m1_chain_entry(name, fast, n):
         k_ms, p_ms, b_ms, b_by = times[fast, False]  # the E-step segment
         return {"name": name, "route": "cuda", "source": "dvae_tpu_torch/csrc/mh_chain.cu",
                 "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": n,
                 "max_abs_err": max_abs[fast], "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None}
 
-    log(json.dumps({"kernels": [chain_entry("mh_chain", True, launches_mma),
-                                chain_entry("mh_chain_f32", False, launches_f32),
+    log(json.dumps({"kernels": [m1_chain_entry("mh_chain", True, launches_mma),
+                                m1_chain_entry("mh_chain_f32", False, launches_f32),
                                 *stft_entries, *cond_entries, *engine_entries,
-                                *serving_entries]}))
+                                *serving_entries, *labelled_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

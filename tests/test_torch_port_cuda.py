@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from dvae_tpu_torch.data.builders import build_frames
+from dvae_tpu_torch.data.datasets import FrameDataset
 from dvae_tpu_torch.enhance import mh_chain
 from dvae_tpu_torch.enhance.mcem import McemConfig, run_mcem
 from dvae_tpu_torch.enhance.mh_chain import (
@@ -42,10 +43,11 @@ from dvae_tpu_torch.enhance.mh_chain import (
     run_mh_chain,
 )
 from dvae_tpu_torch.enhance.pipeline import EnhancerConfig
-from dvae_tpu_torch.models import VAE, DisentangledVAE
+from dvae_tpu_torch.models import CVAE, CVAE_v3, CVAE_v4, VAE, DisentangledVAE
 from dvae_tpu_torch.ops import log_power_spectrogram, power_spectrogram, stft_power
 from dvae_tpu_torch.ops.stft import StftConfig, padded_length
 from dvae_tpu_torch.serving import EnhanceService, ServeConfig
+from dvae_tpu_torch.train.loop import LoopConfig, fit_adversarial, fit_semisup, fit_vae
 
 F, L = 513, 16
 PRECISIONS = pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
@@ -489,3 +491,73 @@ def test_cuda_service_warmup_builds_the_kernels_or_fails(cuda, monkeypatch):
         assert not svc.ready.is_set() and svc.warm_buckets == []
     finally:
         svc.close()
+
+
+def _labelled_wavs():
+    t = np.arange(40000) / 16000
+    rng = np.random.default_rng(12)
+    out = []
+    for k, n in enumerate((_quirk_length(), 16000, 40000, 11111)):
+        s = np.sin(2 * np.pi * (150 + 30 * k) * t[:n]) * (np.sin(2 * np.pi * 1.1 * t[:n]) > 0)
+        out.append((0.3 * s + 1e-3 * rng.standard_normal(n)).astype(np.float32))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labels", ["vad_labels", "ibm_labels"])
+def test_cuda_labelled_build_frames_one_launch_matches_cpu(cuda, labels):
+    """The labelled frame set costs one kernel launch. VAD labels equal the
+    CPU path's; IBM labels, taken from the kernel's power, disagree on at
+    most 1e-4 of the bins, and only where the CPU path's dB value lies
+    within 1e-3 dB of its utterance's threshold."""
+    wavs = _labelled_wavs()
+    before = stft_power.launches
+    got = build_frames(wavs, device=cuda, labels=labels)
+    assert stft_power.launches == before + 1
+    want = build_frames(wavs, device="cpu", labels=labels)
+    assert got.counts == want.counts and got.y.shape == want.y.shape
+    if labels == "vad_labels":
+        np.testing.assert_array_equal(got.y, want.y)
+        return
+    db = 20.0 * np.log10(np.sqrt(want.x.astype(np.float64)) + 1e-8)
+    start, margin = 0, np.empty_like(db)
+    for n in want.counts:
+        margin[start:start + n] = db[start:start + n] - (db[start:start + n].max() - 50.0)
+        start += n
+    off = got.y != want.y
+    assert off.mean() <= 1e-4 and (np.abs(margin[off]) < 1e-3).all()
+
+
+def _labelled_set(n, y_dim, seed):
+    rng = np.random.default_rng(seed)
+    x = (np.abs(rng.standard_normal((n, F))) + 0.1).astype(np.float32)
+    return FrameDataset.from_arrays(x, (rng.uniform(size=(n, y_dim)) > 0.5).astype(np.float32),
+                                    x.mean(0)[:, None], x.std(0)[:, None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["v5", "v4"])
+def test_cuda_fit_adversarial_few_steps(cuda, tmp_path, layout):
+    model = (DisentangledVAE if layout == "v5" else CVAE_v4)(F, 1, L, (128, 128))
+    train, valid = _labelled_set(640, 1, 1), _labelled_set(256, 1, 2)
+    best, hist = fit_adversarial(model, train, valid, tmp_path, "M2_info", 0.0, 10.0, 1.0,
+                                 cfg=LoopConfig(batch_size=128, end_epoch=3, device_data=True),
+                                 y_cond=None if layout == "v5" else "hardlabel")
+    assert next(model.parameters()).device.type == "cuda"
+    assert all(np.isfinite(list(h["train"].values()) + list(h["valid"].values())).all()
+               for h in hist)
+    assert all(torch.isfinite(v).all() for v in best.values())
+    assert len(list(tmp_path.glob("M2_info_epoch_*.opt.pt"))) == 2
+
+
+@pytest.mark.cuda
+def test_cuda_fit_semisup_and_conditional_few_steps(cuda, tmp_path):
+    train, valid = _labelled_set(640, 1, 3), _labelled_set(256, 1, 4)
+    cfg = LoopConfig(batch_size=128, end_epoch=3)
+    _, hist = fit_semisup(CVAE_v3(F, 1, L, (128, 128)), train, valid, tmp_path / "ss",
+                          "M2v3", "uloss", 10.0, cfg=cfg)
+    assert all(np.isfinite(list(h["valid"].values())).all() for h in hist)
+    ibm_train, ibm_valid = _labelled_set(640, 513, 5), _labelled_set(256, 513, 6)
+    _, hist = fit_vae(CVAE(F, 513, L, (128, 128)), ibm_train, ibm_valid, tmp_path / "m2",
+                      "M2", conditional=True, cfg=cfg)
+    assert all(np.isfinite(h["valid"]["elbo"]) for h in hist)

@@ -27,7 +27,7 @@ from dvae_tpu.models import VAE as JaxVAE
 from dvae_tpu.train import checkpoint as jckpt
 from dvae_tpu.train.steps import adam as jadam
 from dvae_tpu_torch.data.datasets import FrameDataset
-from dvae_tpu_torch.models import VAE
+from dvae_tpu_torch.models import CVAE, VAE
 from dvae_tpu_torch.models.convert import state_dict_from_jax
 from dvae_tpu_torch.train import checkpoint as tckpt
 from dvae_tpu_torch.train import loop as tloop
@@ -187,10 +187,26 @@ def test_elbo_steps_match_jax(std_norm):
     assert np.isfinite(float(e["elbo"]))
 
 
-def test_conditional_raises():
-    tm = VAE(513, 16, H)
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_train_step(tm, adam(tm.parameters()), conditional=True)
+def test_conditional_raises(tmp_path):
+    """The conditional (M2) step trains and raises only without labels;
+    what stays unported (K steps per dispatch, a mesh) still raises, naming
+    its ROADMAP item. Parity with JAX: tests/test_torch_port_train_cond.py."""
+    tm = CVAE(513, 1, 16, H)
+    step = make_train_step(tm, adam(tm.parameters()), conditional=True)
+    x = torch.from_numpy(_frames(32, 5))
+    y = torch.from_numpy((np.arange(32) % 2).astype(np.float32)[:, None])
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
+    m = step(x, y, generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(float(m["elbo"]))
+    assert all(not torch.equal(before[k], v) for k, v in tm.state_dict().items())
+    with pytest.raises(ValueError, match="labels y"):
+        step(x)
+    train = FrameDataset.from_arrays(_frames(64, 1), y.numpy().repeat(2, 0))
+    for cfg, kw, item in ((LoopConfig(end_epoch=2, steps_per_dispatch=4), {}, "A12.5"),
+                          (LoopConfig(end_epoch=2), {"mesh": object()}, "A14")):
+        with pytest.raises(NotImplementedError, match=item):
+            fit_vae(CVAE(513, 1, 16, H), train, train, tmp_path, "M2", conditional=True,
+                    cfg=cfg, device="cpu", **kw)
 
 
 def test_frame_dataset_h5_matches_jax(tmp_path):
@@ -299,9 +315,10 @@ def test_fit_vae_resume_and_device_data_are_bitwise(tmp_path):
 def test_fit_vae_std_norm_and_unported_options(tmp_path):
     _, _, hist = _fit(tmp_path, LoopConfig(batch_size=256, end_epoch=2, std_norm=True))
     assert np.isfinite(hist[0]["valid"]["elbo"])
-    for kw, item in (({"conditional": True}, "A9"), ({"mesh": object()}, "A14")):
-        with pytest.raises(NotImplementedError, match=item):
-            _fit(tmp_path, LoopConfig(end_epoch=2), **kw)
+    with pytest.raises(ValueError, match="needs a dataset with labels"):
+        _fit(tmp_path, LoopConfig(end_epoch=2), conditional=True)
+    with pytest.raises(NotImplementedError, match="A14"):
+        _fit(tmp_path, LoopConfig(end_epoch=2), mesh=object())
     with pytest.raises(NotImplementedError, match="CUDA graph"):
         _fit(tmp_path, LoopConfig(end_epoch=2, steps_per_dispatch=4))
     with pytest.raises(FileNotFoundError, match="no epoch-4 checkpoint"):
