@@ -115,7 +115,30 @@ Phases, in order; any failure exits non-zero:
    each; then each train step's time at batch 128 (host clock over an
    epoch, CUDA events over 50 warm steps) beside M1's, the chain's E-step
    segment at the trained M2-info's fold and the STFT power kernel at the
-   labelled frame set, each with the card's name and power limit.
+   labelled frame set, each with the card's name and power limit;
+13. the reference's CLI chain at full width, after phase 12: phase 12's
+   utterances as a raw NTCD tree under ``build/`` (wavs and placeholder
+   ``.mat`` files, no lip videos), ``python -m
+   dvae_tpu_torch.cli.create_train_set --format npz`` for VAD and IBM
+   labels as processes of their own (one STFT power launch per chunk of 64
+   utterances, counted in the process), the arrays against an in-process
+   ``build_frames`` of the same wavs (VAD exactly, IBM on all but 1e-4 of
+   the bins); the five trainer CLIs as processes on the ``.npz`` sets, two
+   epochs at ``--steps-per-dispatch 8`` (M2-info and its pretrain CLI with
+   ``--device-data``; the pretrain CLI from the M2-info run's best
+   ``.pt``): exit 0, finite metrics, the ELBO falling, one ``.pt`` per
+   epoch under the mangled run name; the CLI-trained M2-info (self-soft
+   labels, one STFT power launch) and M2 IBM priors serve the phase-3
+   batch through niter + 1 bf16-body chain launches each; then, for the M1
+   ELBO, the conditional ELBO at y_dim 513, semisup and the adversarial
+   step, one replay of the K = 8 graph against 8 eager calls on a twin
+   (within the train-step tolerances, bitwise reported), ms per optimizer
+   step at K = 1, 8, 32 host-fed and device-resident (host clock over an
+   epoch, CUDA events over warm dispatches), and the device's idle share
+   over one epoch at K = 1 and 32 (``chip_smoke.py --kstep-profile``, a
+   process of its own under ``torch.profiler``); the chain and the STFT
+   power kernel at this path's launches, each with the card's name and
+   power limit.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -1777,6 +1800,420 @@ def labelled_training_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str) -
             stft_entry]
 
 
+CLI_EPOCHS, K_TIMES, CLI_CHUNK = 2, (1, 8, 32), 64
+KSTEP_KINDS = ("M1 ELBO", "M2 ELBO (IBM)", "M2v3 semisup (uloss)", "M2-info adversarial")
+
+
+def write_raw_tree(raw: str, splits: dict) -> dict:
+    """``splits`` ({split: utterances}) as a raw NTCD-TIMIT tree under
+    ``raw``: each utterance its own speaker's ``sa1``, the wav under
+    ``ntcd_timit/Clean/volunteers/<spk>/straightcam/`` and a placeholder
+    ``.mat`` under ``ntcd_timit/matlab_raw/<split dir>/<spk>/`` (the catalog
+    only lists them; no lip-video h5s, so no trim). Returns {split: the
+    wav paths in the catalog's order}."""
+    from dvae_tpu_torch.data.io import write_wav
+
+    paths = {}
+    for split, utts in splits.items():
+        sdir, pre = {"train": ("train", "tr"), "validation": ("dev", "va")}[split]
+        paths[split] = []
+        for i, u in enumerate(utts):
+            spk = f"{pre}{i:04d}"
+            mat = os.path.join(raw, "ntcd_timit", "matlab_raw", sdir, spk, "sa1.mat")
+            os.makedirs(os.path.dirname(mat), exist_ok=True)
+            open(mat, "wb").close()
+            wav = os.path.join(raw, "ntcd_timit", "Clean", "volunteers", spk, "straightcam",
+                               "sa1.wav")
+            os.makedirs(os.path.dirname(wav), exist_ok=True)
+            write_wav(wav, u, FS)
+            paths[split].append(wav)
+    return paths
+
+
+def run_module(module: str, argv: list, count_stft: bool = False) -> tuple:
+    """``python -m module *argv`` as a subprocess from the repo's root; with
+    ``count_stft`` through a wrapper that prints the process's B2 launches
+    at its end. Returns (stdout, launches or None); a non-zero exit fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    if count_stft:
+        wrap = ("import runpy, sys\nfrom dvae_tpu_torch.ops import stft_power\n"
+                "sys.argv = sys.argv[1:]\n"
+                "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+                "print(f'stft_power launches {stft_power.launches}')\n")
+        cmd = [sys.executable, "-c", wrap, module, *argv]
+    else:
+        cmd = [sys.executable, "-m", module, *argv]
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"{module} {' '.join(argv)} exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    launches = None
+    if count_stft:
+        launches = int(r.stdout.strip().splitlines()[-1].split()[-1])
+    return r.stdout, launches
+
+
+def epoch_metrics(stdout: str) -> list:
+    """The ``[Train]`` lines of a fit's epoch log, as dicts."""
+    out = []
+    for line in stdout.splitlines():
+        if line.startswith("[Train]"):
+            pairs = line.split("]", 1)[1].split("    ")
+            out.append({k.strip(): float(v) for k, v in (p.split(":") for p in pairs if p.strip())})
+    return out
+
+
+def kstep_setup(kind: str, k: int, ds, device_data: bool):
+    """A fresh full-width model of ``kind`` (Xavier from the seed) on the
+    card with its train step as a K-step fit runs it (capturable Adam and
+    kept gradients when ``k > 1``), and its batch source. Returns (model,
+    optimizers, step, MultiStep or None, feed)."""
+    import torch
+
+    from dvae_tpu_torch.models import CVAE, VAE, CVAE_v3, DisentangledVAE
+    from dvae_tpu_torch.models.blocks import init_xavier_
+    from dvae_tpu_torch.train import loop
+    from dvae_tpu_torch.train.steps import (
+        MultiStep,
+        adam,
+        init_adversarial_state,
+        make_adversarial_step,
+        make_semisup_step,
+        make_train_step,
+    )
+
+    multi = k > 1
+    make = {"M1 ELBO": lambda: VAE(513, 16, (128, 128)),
+            "M2 ELBO (IBM)": lambda: CVAE(513, 513, 16, (128, 128)),
+            "M2v3 semisup (uloss)": lambda: CVAE_v3(513, 1, 16, (128, 128)),
+            "M2-info adversarial": lambda: DisentangledVAE(513, 1, 16, (128, 128))}[kind]
+    model = init_xavier_(make(), torch.Generator().manual_seed(SEED)).cuda()
+    if kind == "M2-info adversarial":
+        opts = init_adversarial_state(model, 1e-4, capturable=multi)
+        step = make_adversarial_step(model, *opts, 0.0, 10.0, 1.0, keep_grads=multi)
+    else:
+        opts = (adam(model.parameters(), 1e-4, capturable=multi),)
+        step = (make_semisup_step(model, opts[0], "uloss", 10.0, keep_grads=multi)
+                if kind.startswith("M2v3") else
+                make_train_step(model, opts[0], kind != "M1 ELBO", keep_grads=multi))
+    feed = (loop._DeviceFeed if device_data else loop._HostFeed)(
+        ds, torch.device("cuda"), kind != "M1 ELBO")
+    return model, opts, step, (MultiStep(step, opts, feed.data) if multi else None), feed
+
+
+def kstep_epoch(step, multi, feed, k: int, gen, rng) -> int:
+    """One epoch of full batches of 128, ``k`` per dispatch, as
+    ``loop._run_epochs`` runs them (the leftover batches as one smaller
+    dispatch), the metrics summed on the card. Returns the steps run."""
+    import torch
+
+    acc, buf, n = None, [], 0
+
+    def flush():
+        nonlocal acc, n
+        if len(buf) > 1:
+            vals = multi(*feed.stack(buf), generator=gen)
+            feed.sent()
+        elif buf:
+            m = step(*feed.one(buf[0]), generator=gen)
+            vals = torch.stack(list(m.values()))[None]
+        else:
+            return
+        part = vals.sum(0, dtype=torch.float64)
+        acc = part if acc is None else acc + part
+        n += len(buf)
+        buf.clear()
+
+    for item in feed.batches(128, rng, True):
+        buf.append(item)
+        if len(buf) >= k:
+            flush()
+    flush()
+    check(bool(torch.isfinite(acc).all()), "K-step epoch metrics not finite")
+    return n
+
+
+def kstep_profile(kind: str, k: int, npz: str) -> int:
+    """``chip_smoke.py --kstep-profile <kind> <K> <npz>``: one host-fed epoch
+    of ``kind`` at ``K`` steps per dispatch under ``torch.profiler``, after a
+    warm epoch; prints the device's idle share. Run as a process of its own
+    (host timings after the profiler ran slower in the same process)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dvae_tpu_torch.data.datasets import FrameDataset
+
+    ds = FrameDataset(npz, "train")
+    _, _, step, multi, feed = kstep_setup(kind, k, ds, False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kstep_epoch(step, multi, feed, k, gen, np.random.default_rng(SEED))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = kstep_epoch(step, multi, feed, k, gen, np.random.default_rng(SEED + 1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0) / 1e6
+    if busy > 0:
+        log(f"{kind} K={k}: {n} steps in {wall:.4f} s under the profiler, device busy "
+            f"{busy:.4f} s, idle share {100 * (1 - busy / wall):.1f}%")
+    else:
+        log(f"{kind} K={k}: no device time in the trace, idle share not measured")
+    return 0
+
+
+def cli_chain_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str) -> list:
+    """Phase 13 on the card: the reference's CLI chain at full width, from a
+    raw tree through ``create_train_set`` (B2) and the five trainer CLIs
+    (K = 8) to serving two CLI-trained priors (B1); then the K-step graph
+    against eager K steps, the K-step times and idle shares. Returns the
+    kernels-line entries of this path."""
+    import torch
+
+    from dvae_tpu_torch.data.builders import build_frames, padded_batch
+    from dvae_tpu_torch.data.datasets import FrameDataset
+    from dvae_tpu_torch.data.io import read_wav
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.labeling import self_soft_labels
+    from dvae_tpu_torch.enhance.mcem import McemConfig
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import CVAE, DisentangledVAE
+    from dvae_tpu_torch.ops import stft_power
+    from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped
+    from dvae_tpu_torch.train import checkpoint as ckpt
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    # ---- 13a. phase 12's gated utterances as a raw NTCD tree under build/
+    rng, gate_rng = np.random.default_rng(SEED + 1), np.random.default_rng(SEED + 12)
+    clean_train = [gated(c, gate_rng) for c, _ in synthetic_parts(rng, M1_TRAIN_UTTS)]
+    clean_valid = [gated(c, gate_rng) for c, _ in synthetic_parts(rng, M1_VALID_UTTS)]
+    data = os.path.join(work, "data")
+    paths = write_raw_tree(os.path.join(data, "subset", "raw"),
+                           {"train": clean_train, "validation": clean_valid})
+    frames_dir = os.path.join(data, "subset", "processed", "ntcd_timit")
+
+    # ---- 13b. create_train_set --format npz, B2 once per chunk
+    n_b2, npz = 0, {}
+    read = {s: [read_wav(p)[0] for p in ps] for s, ps in paths.items()}
+    for labels in ("vad_labels", "ibm_labels"):
+        t0 = time.perf_counter()
+        out, n = run_module("dvae_tpu_torch.cli.create_train_set",
+                            ["--data-root", data, "--labels", labels, "--format", "npz",
+                             "--chunk-utterances", str(CLI_CHUNK)], count_stft=True)
+        wall = time.perf_counter() - t0
+        npz[labels] = os.path.join(frames_dir, f"Clean_{labels}_upsampled.npz")
+        check(out.startswith(f"wrote {npz[labels]}"), f"create_train_set said {out!r}")
+        chunks = {s: -(-len(u) // CLI_CHUNK) for s, u in read.items()}
+        check(n == sum(chunks.values()), f"{n} stft_power launches for chunks {chunks}")
+        n_b2 += n
+        with np.load(npz[labels]) as f:
+            got = {k: f[k] for k in f.files}
+        said = []
+        for split in ("train", "validation"):
+            want = build_frames(read[split], labels=labels)  # one launch, in process
+            x, y = got[f"X_{split}"].T, got[f"Y_{split}"].T
+            check(x.shape == want.x.shape and y.shape == want.y.shape,
+                  f"{labels} {split}: {x.shape} vs {want.x.shape}")
+            p = torch.from_numpy(want.x)
+            ratio = limit_ratio(torch.from_numpy(x), p)
+            off = int((y != want.y).sum())
+            check(ratio <= 1.0, f"{labels} {split} rows at {ratio} of the power limit")
+            check(off == 0 if labels == "vad_labels" else off <= 1e-4 * y.size,
+                  f"{labels} {split}: {off} labels differ")
+            rows_said = ("exact" if np.array_equal(x, want.x)
+                         else f"at {ratio:.3f} of the power limit")
+            said.append(f"{split} {x.shape} rows {rows_said}, {off} labels differ")
+            if split == "train":
+                for k, w in (("X_train_mean", want.mean), ("X_train_std", want.std)):
+                    check(np.allclose(got[k], w, rtol=1e-5, atol=0), f"{labels} {k}")
+        log(f"phase 13: create_train_set --labels {labels} --format npz in {wall:.2f} s (a "
+            f"process of its own): {n} stft_power launches for {chunks} chunks of "
+            f"{CLI_CHUNK} utterances; against an in-process build_frames of the same wavs: "
+            f"{'; '.join(said)}; train statistics within rtol 1e-5")
+
+    # ---- 13c. the five trainer CLIs on the .npz frame sets, K = 8
+    models = os.path.join(work, "models")
+    base = ["--data-root", data, "--models-root", models, "--end-epoch", str(CLI_EPOCHS + 1),
+            "--steps-per-dispatch", "8"]
+    hdim = "hdim_128_128_zdim_016_end_epoch_003"
+    runs = {
+        "training_m1": (["--frames", npz["vad_labels"]], f"ntcd_M1_nonorm_{hdim}", "M1",
+                        "elbo"),
+        "training_m2": (["--labels", "ibm_labels", "--frames", npz["ibm_labels"]],
+                        f"ntcd_M2_IBM_nonorm_{hdim}", "M2", "elbo"),
+        "training_m2v3_semisup": (["--frames", npz["vad_labels"], "--alpha", "10"],
+                                  f"ntcd_M2v3_VAD_Uloss_alpha_10.0_nonorm_{hdim}", "M2",
+                                  "objective"),
+        "training_m2_info_vad": (["--frames", npz["vad_labels"], "--device-data"],
+                                 "ntcd_M2_info_VAD_Lenc_aux_v1_alpha_0.0_beta_10.0_gamma_1.0"
+                                 f"_y_nonorm_{hdim}", "M2", "elbo"),
+    }
+    pre_name = f"ntcd_M2_info_VAD_Lenc_aux_v3_alpha_0.0_beta_10.0_pretrain_yhatsoft_nonorm_{hdim}"
+
+    def finished(cli, out, run, prefix, curve, wall):
+        hist = epoch_metrics(out)
+        check(len(hist) == CLI_EPOCHS and all(np.isfinite(list(h.values())).all() for h in hist),
+              f"{cli}: epoch metrics {hist}")
+        check(hist[-1][curve] < hist[0][curve], f"{cli}: the {curve} did not fall: {hist}")
+        pts = ckpt.checkpoints(os.path.join(models, run), f"{prefix}_epoch_*.pt")
+        check(len(pts) == CLI_EPOCHS, f"{cli}: {len(pts)} .pt files under {run}")
+        log(f"phase 13: {cli} ({wall:.1f} s, a process of its own): train {curve} per epoch "
+            f"{[h[curve] for h in hist]}; {len(pts)} .pt under {run}")
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        futs = {cli: pool.submit(run_module, f"dvae_tpu_torch.cli.{cli}", base + extra)
+                for cli, (extra, *_rest) in runs.items()}
+        outs = {cli: f.result()[0] for cli, f in futs.items()}
+    wall = time.perf_counter() - t0
+    for cli, (extra, run, prefix, curve) in runs.items():
+        finished(cli, outs[cli], run, prefix, curve, wall)
+    info_best = ckpt.best_checkpoint(os.path.join(models, runs["training_m2_info_vad"][1]), "M2")
+    t0 = time.perf_counter()
+    out, _ = run_module("dvae_tpu_torch.cli.training_m2_info_vad_pretrain",
+                        base + ["--frames", npz["vad_labels"], "--device-data",
+                                "--pretrained-checkpoint", str(info_best)])
+    finished("training_m2_info_vad_pretrain", out, pre_name, "M2", "elbo",
+             time.perf_counter() - t0)
+    log(f"phase 13: the four independent trainer CLIs ran side by side in {wall:.1f} s, the "
+        f"pretrain CLI after them from {info_best.name}")
+
+    # ---- 13d. the CLI-trained M2-info and M2 IBM priors, served
+    mc = McemConfig()
+    want = mc.niter + 1
+    stft_cfg = StftConfig()
+
+    def served(model, y_mode, path, ys_fn, what):
+        enh = Enhancer(model, EnhancerConfig(y_mode=y_mode))
+        enh.reload(torch.load(path, map_location="cpu", weights_only=True))
+        mh_chain.launches = mh_chain.launches_mma = stft_power.launches = 0
+        ys = ys_fn(enh)
+        out = enh.enhance_batch(wavs, ys, seed=SEED)
+        n_b1, n_mma, n_st = mh_chain.launches, mh_chain.launches_mma, stft_power.launches
+        check(n_mma == n_b1 == want, f"{what}: {n_mma} bf16 body launches of {n_b1}")
+        check(all(np.isfinite(a).all() and np.isfinite(b).all() for a, b in out)
+              and np.isfinite(enh.last_cost).all(), f"{what}: outputs not finite")
+        log(f"phase 13: {path.name} of the CLI run ({what}) enhanced the phase-3 batch through "
+            f"{n_mma} bf16-body mh_chain launches (expected {want}) and {n_st} stft_power; "
+            f"outputs finite, cost {enh.last_cost[0]:.5f} -> {enh.last_cost[-1]:.5f}")
+        return enh, ys, n_b1, n_st
+
+    enh_v5, ys_v5, b1_v5, st_v5 = served(
+        DisentangledVAE(513, 1, 16, (128, 128)), "dec_only", info_best,
+        lambda enh: self_soft_labels(enh.model, wavs, stft_cfg, 1, "classify_from_x"),
+        "M2-info, dec_only, self-soft labels")
+    check(st_v5 == 1, f"{st_v5} stft_power launches for one self-soft batch")
+    m2_best = ckpt.best_checkpoint(os.path.join(models, runs["training_m2"][1]), "M2")
+    _, _, b1_m2, _ = served(
+        CVAE(513, 513, 16, (128, 128)), "enc_dec", m2_best,
+        lambda enh: [ibm_labels(c, n_stft_frames_clamped(len(c), stft_cfg)) for c in cleans],
+        "M2, enc_dec, IBM labels of the clean parts")
+
+    # ---- 13e. the K-step graph against K eager steps, then its times
+    sets = {"vad_labels": FrameDataset(npz["vad_labels"], "train"),
+            "ibm_labels": FrameDataset(npz["ibm_labels"], "train")}
+
+    def ds_of(kind):
+        return sets["ibm_labels" if "IBM" in kind else "vad_labels"]
+
+    def adam_state(opts):
+        return [v for o in opts for st in o.state.values() for _, v in sorted(st.items())]
+
+    for kind in KSTEP_KINDS:
+        said = []
+        for device_data in (False, True):
+            model_a, opts_a, _, multi, feed = kstep_setup(kind, 8, ds_of(kind), device_data)
+            model_b, opts_b, step_b, _, _ = kstep_setup(kind, 8, ds_of(kind), device_data)
+            ga = torch.Generator(device=dev).manual_seed(SEED)
+            gb = torch.Generator(device=dev).manual_seed(SEED)
+            items = list(feed.batches(128, np.random.default_rng(SEED), True))[:24]
+            same, m_rel, p_abs = [], 0.0, 0.0
+            for d in range(3):
+                chunk = items[8 * d:8 * d + 8]
+                got = multi(*feed.stack(chunk), generator=ga)
+                feed.sent()
+                ref = torch.stack([torch.stack(list(step_b(*feed.one(it), generator=gb).values()))
+                                   for it in chunk])
+                sync()
+                pa = list(model_a.state_dict().values()) + adam_state(opts_a)
+                pb = list(model_b.state_dict().values()) + adam_state(opts_b)
+                m_rel = max(m_rel, float(((got - ref).abs() / ref.abs().clamp_min(1e-30)).max()))
+                p_abs = max([p_abs] + [float((a.float() - b.float()).abs().max())
+                                       for a, b in zip(pa, pb)])
+                same.append(torch.equal(got, ref) and all(torch.equal(a, b)
+                                                          for a, b in zip(pa, pb)))
+            check(m_rel <= 1e-5 and p_abs <= 2e-6,
+                  f"{kind}: graph against eager K steps: metrics {m_rel}, state {p_abs}")
+            said.append(f"{'device_data' if device_data else 'host-fed'} bitwise per dispatch "
+                        f"{same} (max metric rel diff {m_rel:.3e}, max weight / Adam state "
+                        f"diff {p_abs:.3e})")
+        log(f"phase 13: {kind}, one replay of the K=8 graph against 8 eager calls of the "
+            f"same step on a twin (capturable Adam, the same generator state), 3 dispatches "
+            f"(the eager warm-up, two replays): {'; '.join(said)}")
+
+    # ms per optimizer step: the host clock over an epoch (after a warm epoch
+    # that also captures the graphs) and CUDA events over warm dispatches
+    times = {}
+    for kind in KSTEP_KINDS:
+        for device_data in (False, True):
+            for k in K_TIMES:
+                _, _, step, multi, feed = kstep_setup(kind, k, ds_of(kind), device_data)
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                kstep_epoch(step, multi, feed, k, gen, np.random.default_rng(SEED))
+                sync()
+                t0 = time.perf_counter()
+                n = kstep_epoch(step, multi, feed, k, gen, np.random.default_rng(SEED + 1))
+                sync()
+                host_ms = (time.perf_counter() - t0) / n * 1e3
+                items = list(feed.batches(128, np.random.default_rng(SEED), True))[:k]
+                if k > 1:
+                    stack = feed.stack(items)
+
+                    def dispatch():
+                        multi(*stack, generator=gen)
+                        feed.sent()
+                else:
+                    batch = feed.one(items[0])
+
+                    def dispatch():
+                        step(*batch, generator=gen)
+                ev_ms = cuda_ms(dispatch, reps=128 // k, warm=2) / k
+                times[kind, device_data, k] = (host_ms, ev_ms)
+        rows = "; ".join(
+            f"K={k}: host-fed {times[kind, False, k][0]:.4f} / {times[kind, False, k][1]:.4f}, "
+            f"device_data {times[kind, True, k][0]:.4f} / {times[kind, True, k][1]:.4f}"
+            for k in K_TIMES)
+        log(f"phase 13: {kind} ms per optimizer step at batch 128 (host clock over an epoch of "
+            f"{n} steps / CUDA events over 128 steps of warm dispatches): {rows} {tag}")
+
+    # ---- 13f. the device's idle share over one epoch, K = 1 and K = 32, each
+    # under the profiler in a process of its own
+    for kind in ("M1 ELBO", "M2-info adversarial"):
+        for k in (1, 32):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__), "--kstep-profile",
+                                kind, str(k), npz["vad_labels"]], capture_output=True,
+                               text=True, timeout=600,
+                               cwd=os.path.dirname(os.path.abspath(__file__)))
+            check(r.returncode == 0, f"K-step profile {kind} K={k}: {r.stderr[-3000:]}")
+            said = r.stdout.strip().splitlines()[-1]
+            log(f"phase 13: host-fed epoch under torch.profiler, {said} {tag}")
+
+    # ---- the kernels at this path's launches
+    seg = conditioned_segment(enh_v5.mats, cond_batch_inputs(enh_v5, wavs, ys_v5), mc, cuda_ms,
+                              agree)
+    log(f"phase 13: mh_chain bf16 body, E-step segment of the CLI-trained M2-info (row bias "
+        f"(rows, {seg['h1']})) rows={seg['rows']} steps={seg['steps']}: kernel "
+        f"{seg['k_ms']:.4f} ms, plain {seg['p_ms']:.4f} ms, bound {seg['b_ms']:.4f} ms by "
+        f"{seg['b_by']}; frozen segment kernel vs plain: max abs err {seg['max_abs']:.3e}, "
+        f"{seg['said']} {tag}")
+    chunk_xp = padded_batch(read["train"][:CLI_CHUNK])[0].to(dev)
+    stft_entry = time_stft(chunk_xp, False, "create_train_set chunk", n_b2, cuda_ms, tag,
+                           phase=13)
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all")
+    return [chain_entry("mh_chain (CLI-trained priors)", b1_v5 + b1_m2, seg), stft_entry]
+
+
 def main() -> int:
     import torch
 
@@ -2087,6 +2524,8 @@ def main() -> int:
         serving_entries = serving_phase(model, wavs, cuda_ms, plain_chain, agree, tag, work)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
         labelled_entries = labelled_training_phase(wavs, cleans, cuda_ms, agree, tag, work)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+        cli_entries = cli_chain_phase(wavs, cleans, cuda_ms, agree, tag, work)
     peem_profile(enh.mats, (x2b, z0b, maskb), cfg.mcem, tag)
 
     def m1_chain_entry(name, fast, n):
@@ -2099,7 +2538,7 @@ def main() -> int:
     log(json.dumps({"kernels": [m1_chain_entry("mh_chain", True, launches_mma),
                                 m1_chain_entry("mh_chain_f32", False, launches_f32),
                                 *stft_entries, *cond_entries, *engine_entries,
-                                *serving_entries, *labelled_entries]}))
+                                *serving_entries, *labelled_entries, *cli_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))
@@ -2107,4 +2546,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--kstep-profile"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(kstep_profile(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

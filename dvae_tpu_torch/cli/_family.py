@@ -18,6 +18,8 @@ import os
 import pathlib
 import warnings
 
+import numpy as np
+
 from dvae_tpu_torch.enhance.mcem import McemConfig
 from dvae_tpu_torch.enhance.pipeline import ENGINES
 from dvae_tpu_torch.models import CVAE, CVAE_v2, CVAE_v3, CVAE_v4, VAE, DisentangledVAE
@@ -205,14 +207,17 @@ def add_std_norm_eval(ap: argparse.ArgumentParser) -> None:
                          "encoder input with the training h5's "
                          "X_train_mean/X_train_std (needs h5py)")
     ap.add_argument("--norm-h5", default=None,
-                    help="frame h5 holding X_train_mean/X_train_std for "
-                         "--std-norm; defaults to the frame h5 of this "
-                         "command's --labels")
+                    help="frame set (.h5, or .npz without h5py) holding "
+                         "X_train_mean/X_train_std for --std-norm; defaults to "
+                         "the frame h5 of this command's --labels")
 
 
 def read_norm_stats(path):
-    """(X_train_mean, X_train_std) from an h5 file, read with h5py on a CPU
-    host."""
+    """(X_train_mean, X_train_std) from a frame set: an ``.npz``, or an h5
+    file read with h5py on a CPU host."""
+    if str(path).endswith(".npz"):
+        with np.load(path) as f:
+            return f["X_train_mean"], f["X_train_std"]
     try:
         import h5py
     except ImportError:

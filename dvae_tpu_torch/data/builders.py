@@ -10,17 +10,25 @@ own padding (the end-pad quirk depends on its own length), the padded
 signals are zero-padded to the longest, and each row keeps only its own
 frames, which lie inside its own padded length and so do not see the
 shared zeros. The labels take each utterance's own frames the same way.
-The NTCD catalog walk, the video trim and the HDF5 writer are not ported.
+
+:func:`build_frame_dataset` walks the NTCD catalog and writes the
+consolidated frame set ``ntcd_timit/Clean_<labels>_upsampled.{h5,npz}``
+from chunks of utterances, one launch each; :func:`frames_h5_to_npz` copies
+an ``.h5`` frame set to the ``.npz`` that a machine without ``h5py`` reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import pathlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from dvae_tpu_torch.data.catalog import ntcd_timit
+from dvae_tpu_torch.data.io import read_wav
 from dvae_tpu_torch.device import resolve_device
 from dvae_tpu_torch.ops.stft import StftConfig, frame_signal, pad_signal
 from dvae_tpu_torch.ops.stft_power import power_spectrogram
@@ -118,3 +126,137 @@ def build_frames(wavs, cfg: StftConfig = DEFAULT_STFT, max_frames=None,
     std = _empirical_std((x64 * x64).sum(0).cpu().numpy(), mean, n_sum)
     return Frames(x.cpu().numpy(), counts, mean[:, None].astype(np.float32),
                   std[:, None].astype(np.float32), y)
+
+
+def _video_frames(video_path: pathlib.Path, legacy_video_trim: bool):
+    """Frames of the utterance's processed lip video, or None without one.
+    ``legacy_video_trim`` takes ``shape[0]`` of the stored (67, 67, frames)
+    video, the image height, as the reference builder does
+    (create_train_set.py:181-186). Reading the h5 needs ``h5py``: where it
+    is missing, an existing video is an error, never a skipped trim."""
+    if not video_path.exists():
+        return None
+    import h5py
+
+    with h5py.File(video_path, "r") as vf:
+        vshape = vf["X"].shape
+    return vshape[0] if legacy_video_trim else vshape[-1]
+
+
+def _split_frames(input_dir: str, proc_video_dir: str, split: str, labels: str,
+                  legacy_video_trim: bool, chunk: int, dev):
+    """Yield (x (n, F), y (n, Yd)) float32 frame blocks of one split in the
+    catalog's order, ``chunk`` utterances per launch."""
+    clean_in, _ = ntcd_timit.speech_list(input_dir + "/", split)
+    mats = ntcd_timit.video_list(input_dir + "/", split)
+    for s in range(0, len(clean_in), chunk):
+        wavs, limits = [], []
+        for in_rel, mat_rel in zip(clean_in[s:s + chunk], mats[s:s + chunk]):
+            wavs.append(read_wav(os.path.join(input_dir, in_rel))[0])
+            video = pathlib.Path(proc_video_dir) / pathlib.Path(mat_rel).with_suffix("")
+            n_video = _video_frames(video.parent / (video.name + "_upsampled.h5"),
+                                    legacy_video_trim)
+            limits.append(np.iinfo(np.int64).max if n_video is None else n_video)
+        fr = build_frames(wavs, max_frames=limits, device=dev, labels=labels)
+        yield fr.x, fr.y
+
+
+def build_frame_dataset(input_dir, output_dir, labels: str = "vad_labels",
+                        dataset_types=("train", "validation"), proc_video_dir=None,
+                        legacy_video_trim: bool = False, fmt: str = "h5",
+                        chunk: int = 256, device=None) -> pathlib.Path:
+    """The consolidated frame set (port of
+    ``dvae_tpu.data.builders.build_frame_dataset``, create_train_set.py:
+    91-218): ``<output_dir>/ntcd_timit/Clean_<labels>_upsampled.<fmt>``.
+
+    For each split it walks the catalog of ``input_dir`` (the raw tree),
+    takes each clean utterance's power frames and labels through
+    :func:`build_frames` on ``device`` (CUDA unless ``device="cpu"``),
+    ``chunk`` utterances per launch, and trims each utterance to its lip
+    video's frames where ``<proc_video_dir>/...<utt>_upsampled.h5`` exists
+    (default ``output_dir``; see :func:`_video_frames` for
+    ``legacy_video_trim``). It writes ``X_<split>`` (513, N), ``Y_<split>``
+    (Yd, N) and, from the train split, ``X_train_mean`` / ``X_train_std``
+    (513, 1), all float32, the statistics from float64 sums over every
+    chunk. ``fmt="h5"`` writes the JAX builder's layout (lzf, chunks (F,
+    1)) with ``h5py``; ``fmt="npz"`` the same arrays under the same names,
+    without it."""
+    if fmt not in ("h5", "npz"):
+        raise ValueError(f"fmt must be h5 or npz, got {fmt!r}")
+    input_dir, output_dir = str(input_dir), str(output_dir)
+    proc_video_dir = str(proc_video_dir) if proc_video_dir else output_dir
+    dev = resolve_device(device)
+    y_dim = 1 if labels == "vad_labels" else 513
+    out_path = pathlib.Path(output_dir) / f"ntcd_timit/Clean_{labels}_upsampled.{fmt}"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    arrays = {}  # the .npz route's splits, (F, N) / (Yd, N)
+    h5 = None
+    if fmt == "h5":
+        import h5py
+
+        h5 = h5py.File(out_path, "w")
+    try:
+        for split in dataset_types:
+            if h5 is not None:
+                fx = h5.create_dataset(f"X_{split}", (513, 0), maxshape=(513, None),
+                                       chunks=(513, 1), compression="lzf", dtype="float32")
+                fy = h5.create_dataset(f"Y_{split}", (y_dim, 0), maxshape=(y_dim, None),
+                                       chunks=(y_dim, 1), compression="lzf", dtype="float32")
+            xs, ys = [], []
+            n_sum, s_sum, sq_sum = 0, np.zeros(513), np.zeros(513)
+            for x, y in _split_frames(input_dir, proc_video_dir, split, labels,
+                                      legacy_video_trim, chunk, dev):
+                if h5 is not None:
+                    start = fx.shape[1]
+                    fx.resize(start + len(x), axis=1)
+                    fy.resize(start + len(x), axis=1)
+                    fx[:, start:] = x.T
+                    fy[:, start:] = y.T
+                else:
+                    xs.append(x)
+                    ys.append(y)
+                if split == "train":
+                    x64 = x.astype(np.float64)
+                    n_sum += len(x)
+                    s_sum += x64.sum(0)
+                    sq_sum += (x64 * x64).sum(0)
+            if h5 is None:
+                arrays[f"X_{split}"] = np.concatenate(xs or [np.zeros((0, 513), np.float32)]).T
+                arrays[f"Y_{split}"] = np.concatenate(
+                    ys or [np.zeros((0, y_dim), np.float32)]).T
+            if split == "train" and n_sum:
+                mean = s_sum / n_sum
+                stats = {"X_train_mean": mean[:, None].astype(np.float32),
+                         "X_train_std": _empirical_std(sq_sum, mean, n_sum)[:, None].astype(
+                             np.float32)}
+                for k, v in stats.items():
+                    if h5 is not None:
+                        h5.create_dataset(k, data=v)
+                    else:
+                        arrays[k] = v
+    finally:
+        if h5 is not None:
+            h5.close()
+    if h5 is None:
+        _save_npz(out_path, arrays)
+    return out_path
+
+
+def _save_npz(path: pathlib.Path, arrays: dict) -> None:
+    tmp = path.with_name(path.name + ".tmp.npz")
+    np.savez(tmp, **{k: np.ascontiguousarray(v) for k, v in arrays.items()})
+    tmp.replace(path)
+
+
+def frames_h5_to_npz(h5_path, npz_path=None) -> pathlib.Path:
+    """Copy every array of a consolidated frame-set ``.h5`` unchanged into
+    one ``.npz`` (default: beside it, same stem): the route from a corpus
+    built on a CPU host to a machine without ``h5py``. Returns its path."""
+    import h5py
+
+    h5_path = pathlib.Path(h5_path)
+    npz_path = h5_path.with_suffix(".npz") if npz_path is None else pathlib.Path(npz_path)
+    with h5py.File(h5_path, "r") as f:
+        arrays = {k: f[k][()] for k in f.keys()}
+    _save_npz(npz_path, arrays)
+    return npz_path

@@ -1,8 +1,10 @@
 """Training datasets (port of ``dvae_tpu.data.datasets``).
 
-* :class:`FrameDataset`: frame-level (x, y) rows held in host memory, read
-  from the builders' consolidated HDF5 (``X_<split>`` (F, N), ``Y_<split>``)
-  or given as arrays, so that a machine without ``h5py`` can train too.
+* :class:`FrameDataset`: frame-level (x, y) rows from the builders'
+  consolidated frame set (``X_<split>`` (F, N), ``Y_<split>``, the train
+  statistics), an ``.h5`` or an ``.npz`` with the same arrays, or given as
+  arrays. ``.npz`` needs no ``h5py``: the route on a machine without it.
+  An ``.h5`` can also be streamed (``in_memory=False``).
 * :class:`UtteranceDataset`: whole peak-normalized waveforms with their
   per-utterance label h5s, for the sequence trainers. Any sequence of
   ``(wav, labels)`` pairs serves the same role in memory.
@@ -42,17 +44,46 @@ def _read_transposed(dset) -> np.ndarray:
 
 
 class FrameDataset:
-    """Frame-level (x (N, F), y (N, Yd)) rows in host memory."""
+    """Frame-level (x (N, F), y (N, Yd)) rows of one split of a frame set.
 
-    def __init__(self, h5_path, split: str = "train"):
+    ``path`` is an ``.npz`` (always read into memory) or an ``.h5``, read
+    with ``h5py``: into memory by default, or with ``in_memory=False``
+    left on disk and streamed, each batch read as its sorted columns (then
+    :attr:`arrays` raises, as the device-resident path needs the whole
+    split)."""
+
+    def __init__(self, path, split: str = "train", in_memory: bool = True):
+        self.path = str(path)
+        self.split = split
+        self.in_memory = in_memory
+        self._mean_std = None
+        self._file = None
+        if self.path.endswith(".npz"):
+            if not in_memory:
+                raise ValueError(f"{self.path}: an .npz frame set is read into memory; "
+                                 "streaming (in_memory=False) needs the .h5")
+            with np.load(self.path) as f:
+                self._x = np.ascontiguousarray(f[f"X_{split}"].T)
+                self._y = np.ascontiguousarray(f[f"Y_{split}"].T)
+                if "X_train_mean" in f.files:
+                    self._mean_std = (f["X_train_mean"], f["X_train_std"])
+            return
         import h5py
 
-        self.h5_path = str(h5_path)
-        self.split = split
-        with h5py.File(self.h5_path, "r") as f:
-            self._x = _read_transposed(f[f"X_{split}"])
-            self._y = _read_transposed(f[f"Y_{split}"])
-        self._mean_std = None
+        f = h5py.File(self.path, "r")
+        if in_memory:
+            with f:
+                self._x = _read_transposed(f[f"X_{split}"])
+                self._y = _read_transposed(f[f"Y_{split}"])
+        else:
+            self._file = f
+            self._x, self._y = f[f"X_{split}"], f[f"Y_{split}"]  # (F, N) on disk
+
+    def close(self) -> None:
+        """Release the h5 handle of a streamed split."""
+        if self._file is not None:
+            self._file.close()
+            self._file = None
 
     @classmethod
     def from_arrays(cls, x: np.ndarray, y: np.ndarray | None = None,
@@ -60,7 +91,7 @@ class FrameDataset:
         """A dataset over in-memory rows: x (N, F); y (N, Yd) or None for an
         unconditional model; the train statistics (F, 1) for ``mean_std``."""
         ds = cls.__new__(cls)
-        ds.h5_path, ds.split = None, None
+        ds.path, ds.split, ds.in_memory, ds._file = None, None, True, None
         ds._x = np.ascontiguousarray(x, np.float32)
         ds._y = None if y is None else np.ascontiguousarray(y, np.float32)
         ds._mean_std = None if mean is None else (np.asarray(mean), np.asarray(std))
@@ -68,12 +99,15 @@ class FrameDataset:
 
     @property
     def x_dim(self) -> int:
-        return self._x.shape[1]
+        return self._x.shape[1] if self.in_memory else self._x.shape[0]
 
     @property
     def arrays(self):
         """The full (x (N, F), y (N, Yd) or None) arrays: the upload source of
         the device-resident training path."""
+        if not self.in_memory:
+            raise ValueError("arrays needs in_memory=True (device-resident "
+                             "training uploads the whole split once)")
         return self._x, self._y
 
     @property
@@ -82,22 +116,26 @@ class FrameDataset:
         ``X_train_std`` of the h5, or the arrays given)."""
         if self._mean_std is not None:
             return self._mean_std
-        if self.h5_path is None:
-            raise ValueError("this in-memory dataset was given no train statistics")
+        if self.path is None or self.path.endswith(".npz"):
+            raise ValueError("this dataset has no train statistics")
         import h5py
 
-        with h5py.File(self.h5_path, "r") as f:
+        with h5py.File(self.path, "r") as f:
             return f["X_train_mean"][:], f["X_train_std"][:]
 
     def __len__(self):
-        return self._x.shape[0]
+        return self._x.shape[0] if self.in_memory else self._x.shape[1]
 
     def batches(self, batch_size: int, rng: np.random.Generator | None = None,
                 drop_last: bool = False):
         """Yield (x (B, F), y (B, Yd) or None) numpy batches; shuffles when
         ``rng`` is given."""
         for sel in index_batches(len(self), batch_size, rng, drop_last):
-            yield self._x[sel], None if self._y is None else self._y[sel]
+            if self.in_memory:
+                yield self._x[sel], None if self._y is None else self._y[sel]
+            else:
+                cols = np.sort(sel)
+                yield self._x[:, cols].T, self._y[:, cols].T
 
 
 class UtteranceDataset:

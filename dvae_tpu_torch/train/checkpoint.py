@@ -78,9 +78,26 @@ def load_checkpoint(path, model, optimizer=None) -> None:
         saved = torch.load(opt_path, map_location="cpu", weights_only=True)
         if isinstance(optimizer, dict):
             for k, o in optimizer.items():
-                o.load_state_dict(saved[k])
+                _load_optimizer(o, saved[k])
         else:
-            optimizer.load_state_dict(saved)
+            _load_optimizer(optimizer, saved)
+
+
+def _load_optimizer(opt, saved: dict) -> None:
+    """``opt.load_state_dict(saved)``, keeping ``opt``'s own ``capturable``
+    setting: ``load_state_dict`` takes the saving run's, and a run may resume
+    with another ``steps_per_dispatch`` (a CUDA graph needs capturable Adam).
+    The step counts go where the kept setting holds them: on the parameter's
+    device when capturable, else on the CPU."""
+    capturable = [g.get("capturable", False) for g in opt.param_groups]
+    opt.load_state_dict(saved)
+    for group, cap in zip(opt.param_groups, capturable):
+        group["capturable"] = cap
+        for p in group["params"]:
+            state = opt.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(device=p.device if cap else "cpu",
+                                                 dtype=torch.float32)
 
 
 def partial_load(path, model, key_substring: str) -> list[str]:

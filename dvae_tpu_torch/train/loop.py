@@ -13,6 +13,13 @@ shuffle is ``np.random.default_rng((seed, epoch))`` as in the JAX loop, and
 the reparameterization noise comes from a ``torch.Generator`` seeded from
 the same pair. A run resumed at ``start_epoch`` therefore replays the
 uninterrupted run exactly.
+
+``steps_per_dispatch = K > 1`` runs K same-shape batches per dispatch
+through :class:`~dvae_tpu_torch.train.steps.MultiStep`, one CUDA graph
+replay on the card, as JAX's buffered flush does: a ragged trailing batch
+runs alone through the one-step path. The batches and the noise are those
+of K = 1, so on the CPU a K-step run gives K = 1's weights bitwise; on the
+card the optimizers are capturable, whose update rounds differently.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from dvae_tpu_torch.device import resolve_device
 from dvae_tpu_torch.models.blocks import init_xavier_
 from dvae_tpu_torch.train import checkpoint as ckpt
 from dvae_tpu_torch.train.steps import (
+    MultiStep,
     adam,
     init_adversarial_state,
     make_adversarial_eval_step,
@@ -51,8 +59,8 @@ class LoopConfig:
     eps: float = 1e-8
     std_norm: bool = False
     drop_last: bool = False
-    # K optimizer steps per dispatch; only 1 is ported (K > 1 would be a
-    # CUDA graph over K steps here, ROADMAP A12.5)
+    # K optimizer steps per dispatch: a CUDA graph over K steps on the card,
+    # K eager steps on the CPU; the same batches and noise as K = 1
     steps_per_dispatch: int = 1
     # upload each split (rows and labels) to the device once and gather each
     # batch by index there, instead of copying every batch from the host:
@@ -100,42 +108,130 @@ def _fmt(metrics: dict) -> str:
     return "    ".join(f"{k}: {float(v):.3f}" for k, v in metrics.items())
 
 
-def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+def epoch_generator(seed: int, epoch: int, device, generator=None) -> torch.Generator:
     """The sample-noise generator of one epoch, a pure function of
-    ``(seed, epoch)`` (the tag keeps it apart from the init generator)."""
+    ``(seed, epoch)`` (the tag keeps it apart from the init generator):
+    ``generator`` re-seeded in place when given (a CUDA graph registered
+    with it sees the new seed), else a new one."""
     state = np.random.SeedSequence([seed, 0x10F, epoch]).generate_state(1)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
+    gen = torch.Generator(device=device) if generator is None else generator
+    return gen.manual_seed(int(state))
+
+
+class _HostFeed:
+    """Batches of the host dataset (in memory or streamed from its h5): one
+    batch copied to the device as (x (B, F), y (B, Yd) or None), or K
+    batches as one (K, B, ...) stack. On the card a stack is built in pinned
+    memory, two buffers in turn, each refilled only once the dispatch that
+    read it has finished."""
+
+    def __init__(self, ds, device, labels: bool):
+        self.ds, self.device, self.labels = ds, device, labels
+        self.data = None
+        self._pinned, self._turn, self._last = {}, 0, None
+
+    def batches(self, batch_size, rng=None, drop_last=False):
+        return self.ds.batches(batch_size, rng, drop_last)
+
+    @staticmethod
+    def size(item) -> int:
+        return item[0].shape[0]
+
+    def one(self, item):
+        x, y = item
+        return (torch.from_numpy(x).to(self.device),
+                torch.from_numpy(y).to(self.device) if self.labels else None)
+
+    def stack(self, items):
+        parts = [[it[0] for it in items]] + ([[it[1] for it in items]] if self.labels else [])
+        if self.device.type != "cuda":
+            out = [torch.from_numpy(np.stack(a)) for a in parts]
+        else:
+            key = tuple((len(a),) + a[0].shape for a in parts)
+            slot = self._pinned.setdefault(key, [None, None])
+            j = self._turn = 1 - self._turn
+            if slot[j] is None:
+                slot[j] = ([torch.empty(k, pin_memory=True) for k in key], None)
+            out, done = slot[j]
+            if done is not None:
+                done.synchronize()
+            for buf, a in zip(out, parts):
+                np.stack(a, out=buf.numpy())
+            self._last = (slot, j)
+        return out[0], out[1] if self.labels else None
+
+    def sent(self) -> None:
+        """Mark the stack of the last :meth:`stack` as read once the work
+        enqueued so far has run."""
+        if self._last is not None:
+            slot, j = self._last
+            done = torch.cuda.Event()
+            done.record()
+            slot[j] = (slot[j][0], done)
+            self._last = None
+
+
+class _DeviceFeed:
+    """The same batches gathered from one upload of the split, labels by the
+    same index batches. The epoch's row order goes up once, so a step waits
+    on no copy from the host; K batches are a (K, B) view of that order."""
+
+    def __init__(self, ds, device, labels: bool):
+        x_all, y_all = ds.arrays
+        self.n = len(ds)
+        self.data = (torch.from_numpy(x_all).to(device),
+                     torch.from_numpy(y_all).to(device) if labels else None)
+        self.device = device
+        self._order = None
+
+    def batches(self, batch_size, rng=None, drop_last=False):
+        sels = list(index_batches(self.n, batch_size, rng, drop_last))
+        if not sels:
+            return
+        self._order = torch.from_numpy(np.concatenate(sels)).to(self.device)
+        start = 0
+        for sel in sels:
+            yield start, len(sel)
+            start += len(sel)
+
+    @staticmethod
+    def size(item) -> int:
+        return item[1]
+
+    def one(self, item):
+        start, n = item
+        idx = self._order[start:start + n]
+        x_all, y_all = self.data
+        return x_all.index_select(0, idx), None if y_all is None else y_all.index_select(0, idx)
+
+    def stack(self, items):
+        return self._order.narrow(0, items[0][0], len(items) * items[0][1]).view(
+            len(items), items[0][1]), None
+
+    def sent(self) -> None:
+        pass
+
+
+def _rows(feed):
+    def batches(batch_size, rng=None, drop_last=False):
+        for item in feed.batches(batch_size, rng, drop_last):
+            yield feed.one(item)
+    return batches
 
 
 def _host_rows(ds, device, labels: bool = False):
     """Batches copied from the host dataset, as (x (B, F), y (B, Yd) or
     None) tensors on ``device``."""
-    def batches(batch_size, rng=None, drop_last=False):
-        for x, y in ds.batches(batch_size, rng, drop_last):
-            yield (torch.from_numpy(x).to(device),
-                   torch.from_numpy(y).to(device) if labels else None)
-    return batches
+    return _rows(_HostFeed(ds, device, labels))
 
 
 def _device_rows(ds, device, labels: bool = False):
-    """The same batches gathered from one upload of the split, labels by the
-    same index batches. The epoch's row order goes up once, so a step waits
-    on no copy from the host."""
-    x_all, y_all = ds.arrays
-    x_all = torch.from_numpy(x_all).to(device)
-    y_all = torch.from_numpy(y_all).to(device) if labels else None
+    """The same batches gathered from one upload of the split."""
+    return _rows(_DeviceFeed(ds, device, labels))
 
-    def batches(batch_size, rng=None, drop_last=False):
-        sels = list(index_batches(len(ds), batch_size, rng, drop_last))
-        if not sels:
-            return
-        order = torch.from_numpy(np.concatenate(sels)).to(device)
-        start = 0
-        for sel in sels:
-            idx = order[start:start + len(sel)]
-            yield x_all.index_select(0, idx), None if y_all is None else y_all.index_select(0, idx)
-            start += len(sel)
-    return batches
+
+def _optimizers(opt) -> list:
+    return list(opt.values()) if isinstance(opt, dict) else [opt]
 
 
 def _state_cpu(model) -> dict:
@@ -146,41 +242,77 @@ def _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefi
                 cfg: LoopConfig, device, labels: bool, vloss_key: str):
     """The epoch loop of every fitter: the resume of ``cfg.start_epoch``,
     batches (with their labels when ``labels``) from the host or from
-    device-resident splits, logging, per-epoch checkpoints (``opt``, one
-    optimizer or a dict of them, goes into the ``.opt.pt``) and best-weights
-    tracking by the validation metric ``vloss_key``. ``step`` / ``evaluate``
-    take ``(x, y, generator=)``. Returns (best state_dict on the CPU,
-    history)."""
+    device-resident splits, ``cfg.steps_per_dispatch`` of them per dispatch,
+    logging, per-epoch checkpoints (``opt``, one optimizer or a dict of
+    them, goes into the ``.opt.pt``) and best-weights tracking by the
+    validation metric ``vloss_key``. ``step`` / ``evaluate`` take ``(x, y,
+    generator=)``. Returns (best state_dict on the CPU, history)."""
     resume = _resume_checkpoint(model_dir, prefix, cfg.start_epoch)
     if resume is not None:
         ckpt.load_checkpoint(resume, model, opt)
         print(f"resumed from {resume}")
-    rows = _device_rows if cfg.device_data else _host_rows
-    train_rows, valid_rows = rows(train_ds, device, labels), rows(valid_ds, device, labels)
+    feed = _DeviceFeed if cfg.device_data else _HostFeed
+    train_feed, valid_feed = feed(train_ds, device, labels), feed(valid_ds, device, labels)
+    multi = None
+    if cfg.steps_per_dispatch > 1:
+        multi = MultiStep(step, _optimizers(opt), train_feed.data)
     log = _Logger(model_dir, append=resume is not None)
     history = []
     best = (np.inf, None)
     n_train = max(1, -(-len(train_ds) // cfg.batch_size))
     n_valid = max(1, -(-len(valid_ds) // cfg.batch_size))
+    gen = None
 
     for epoch in range(cfg.start_epoch, cfg.end_epoch):
         rng = np.random.default_rng((cfg.seed, epoch))
-        gen = epoch_generator(cfg.seed, epoch, device)
+        gen = epoch_generator(cfg.seed, epoch, device, gen)
         t0 = time.perf_counter()
-        totals, i = {}, 0
-        for x, y in train_rows(cfg.batch_size, rng, cfg.drop_last):
-            metrics = step(x, y, generator=gen)
-            for k, v in metrics.items():
-                totals[k] = totals.get(k, 0.0) + v.double()
-            if i % cfg.log_interval == 0:
-                log.batch(f"Train Epoch: {epoch:2d} [{i}/{n_train}]    {_fmt(metrics)}")
-            i += 1
+        acc, names, i, buf = None, None, 0, []
+
+        def flush():
+            """Run the buffered batches: K of them in one dispatch, a single
+            one through the step. Each step's metrics enter the sums; the
+            batch log shows the dispatch's per-step means."""
+            nonlocal acc, names, i
+            if not buf:
+                return
+            if len(buf) > 1:
+                vals = multi(*train_feed.stack(buf), generator=gen)
+                train_feed.sent()
+                names = multi.names
+            else:
+                m = step(*train_feed.one(buf[0]), generator=gen)
+                names = list(m)
+                vals = torch.stack([m[k] for k in names])[None]
+            part = vals.sum(0, dtype=torch.float64)
+            acc = part if acc is None else acc + part
+            if i % cfg.log_interval < len(buf):
+                log.batch(f"Train Epoch: {epoch:2d} [{i}/{n_train}]    "
+                          f"{_fmt(dict(zip(names, vals.mean(0))))}")
+            i += len(buf)
+            buf.clear()
+
+        group = cfg.steps_per_dispatch
+        first = None
+        for item in train_feed.batches(cfg.batch_size, rng, cfg.drop_last):
+            n = train_feed.size(item)
+            first = n if first is None else first
+            if n != first:  # a ragged trailing batch runs alone
+                flush()
+                buf.append(item)
+                flush()
+                continue
+            buf.append(item)
+            if len(buf) >= group:
+                flush()
+        flush()
         # divide by the steps run: with drop_last the trailing batch never runs
-        train_avg = {k: float(v) / max(i, 1) for k, v in totals.items()}
+        train_avg = {} if acc is None else {
+            k: v / max(i, 1) for k, v in zip(names, acc.tolist())}
 
         totals = {}
-        for x, y in valid_rows(cfg.batch_size):
-            for k, v in evaluate(x, y, generator=gen).items():
+        for item in valid_feed.batches(cfg.batch_size):
+            for k, v in evaluate(*valid_feed.one(item), generator=gen).items():
                 totals[k] = totals.get(k, 0.0) + v.double()
         valid_avg = {k: float(v) / n_valid for k, v in totals.items()}
 
@@ -200,14 +332,13 @@ def _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefi
     return (_state_cpu(model) if best[1] is None else best[1]), history
 
 
-def _prepare(model, cfg: LoopConfig, mesh, init_state_dict, device) -> torch.device:
+def _prepare(model, cfg: LoopConfig, mesh, init_state_dict, device):
     """Refuse what is not ported, then start ``model``'s weights on the
     resolved device: Xavier-normal from a generator seeded by ``cfg.seed``,
-    or ``init_state_dict``."""
-    if cfg.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 is not ported yet: a CUDA graph over K steps "
-            "is its analogue (ROADMAP A12.5)")
+    or ``init_state_dict``. Returns (device, whether the steps run K per
+    dispatch)."""
+    if cfg.steps_per_dispatch < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {cfg.steps_per_dispatch}")
     if mesh is not None:
         raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A14)")
     dev = resolve_device(device)
@@ -217,7 +348,12 @@ def _prepare(model, cfg: LoopConfig, mesh, init_state_dict, device) -> torch.dev
     else:
         init_xavier_(model, torch.Generator().manual_seed(cfg.seed))
     model.to(dev)
-    return dev
+    return dev, cfg.steps_per_dispatch > 1
+
+
+def _capturable(dev, multi: bool) -> bool:
+    """Adam keeps its step counts on the card when a CUDA graph runs it."""
+    return multi and dev.type == "cuda"
 
 
 def _need_labels(ds, who: str) -> None:
@@ -239,10 +375,10 @@ def fit_vae(model, train_ds, valid_ds, model_dir, prefix: str, conditional: bool
     """
     if conditional:
         _need_labels(train_ds, "fit_vae(conditional=True)")
-    dev = _prepare(model, cfg, mesh, init_state_dict, device)
+    dev, multi = _prepare(model, cfg, mesh, init_state_dict, device)
     norm = train_ds.mean_std if cfg.std_norm else None
-    opt = adam(model.parameters(), cfg.learning_rate)
-    step = make_train_step(model, opt, conditional, cfg.eps, norm)
+    opt = adam(model.parameters(), cfg.learning_rate, _capturable(dev, multi))
+    step = make_train_step(model, opt, conditional, cfg.eps, norm, keep_grads=multi)
     evaluate = make_eval_step(model, conditional, cfg.eps, norm)
     return _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefix,
                        cfg, dev, conditional, "elbo")
@@ -261,9 +397,9 @@ def fit_semisup(model, train_ds, valid_ds, model_dir, prefix: str, objective: st
         # is 'nonorm'): refuse rather than train on unnormalized inputs
         raise ValueError("fit_semisup does not support std_norm")
     _need_labels(train_ds, "fit_semisup")
-    dev = _prepare(model, cfg, mesh, init_state_dict, device)
-    opt = adam(model.parameters(), cfg.learning_rate)
-    step = make_semisup_step(model, opt, objective, alpha, y_cond, cfg.eps)
+    dev, multi = _prepare(model, cfg, mesh, init_state_dict, device)
+    opt = adam(model.parameters(), cfg.learning_rate, _capturable(dev, multi))
+    step = make_semisup_step(model, opt, objective, alpha, y_cond, cfg.eps, keep_grads=multi)
     evaluate = make_semisup_eval_step(model, objective, alpha, y_cond, cfg.eps)
     return _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefix,
                        cfg, dev, True, "loss")
@@ -284,15 +420,16 @@ def fit_adversarial(model, train_ds, valid_ds, model_dir, prefix: str, alpha: fl
     encoder loss (training_M2_info_vad.py:280-281). Returns (best
     state_dict, history)."""
     _need_labels(train_ds, "fit_adversarial")
-    dev = _prepare(model, cfg, mesh, init_state_dict, device)
-    opt_enc, opt_aux = init_adversarial_state(model, cfg.learning_rate)
+    dev, multi = _prepare(model, cfg, mesh, init_state_dict, device)
+    opt_enc, opt_aux = init_adversarial_state(model, cfg.learning_rate, _capturable(dev, multi))
     norm = train_ds.mean_std if cfg.std_norm else None
     kw = dict(use_y_hat_soft=use_y_hat_soft, y_cond=y_cond, norm=norm,
               enc_adversary=enc_adversary)
     step = make_adversarial_step(
         model, opt_enc, opt_aux, alpha, beta, gamma, cfg.eps,
         legacy_aux_coupling=legacy_aux_coupling,
-        freeze_substring="classifier" if freeze_classifier else None, **kw)
+        freeze_substring="classifier" if freeze_classifier else None, keep_grads=multi,
+        **kw)
     evaluate = make_adversarial_eval_step(model, alpha, beta, gamma, cfg.eps, **kw)
     return _run_epochs(model, {"enc": opt_enc, "aux": opt_aux}, step, evaluate, train_ds,
                        valid_ds, model_dir, prefix, cfg, dev, True, "enc")

@@ -20,8 +20,10 @@ parameter, as optax does, where ``torch.optim.Adam`` would skip a
 parameter whose ``grad`` is None.
 
 The reparameterization noise is ``sample_eps`` when given, else drawn from
-``generator``. Not ported: the multi-step dispatch (``steps_per_dispatch >
-1``, a CUDA graph in this port, ROADMAP A12.5).
+``generator``. A step built with ``keep_grads=True`` zeroes its gradients
+in place instead of dropping them, so that their buffers outlive the step:
+what :class:`MultiStep` needs to capture K steps into one CUDA graph (the
+port of ``steps_per_dispatch > 1``).
 """
 
 from __future__ import annotations
@@ -33,11 +35,13 @@ import torch
 from dvae_tpu_torch.models import losses
 
 
-def adam(params, lr: float = 1e-4) -> torch.optim.Adam:
+def adam(params, lr: float = 1e-4, capturable: bool = False) -> torch.optim.Adam:
     """The reference's optimizer everywhere (training_M1.py:115). Equal to
     ``optax.adam(lr, b1=0.9, b2=0.999)``: eps 1e-8 outside the square root,
-    no eps inside it, bias-corrected moments."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    no eps inside it, bias-corrected moments. ``capturable`` keeps the step
+    counts on the device, as a CUDA graph over the update needs."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=capturable)
 
 
 def _normalizer(norm, eps, device=None) -> Callable:
@@ -52,6 +56,10 @@ def _normalizer(norm, eps, device=None) -> Callable:
 
 def _device(model) -> torch.device:
     return next(model.parameters()).device
+
+
+def _zero_grad(opt, keep_grads: bool) -> None:
+    opt.zero_grad(set_to_none=not keep_grads)
 
 
 def _fill_missing_grads(opt) -> None:
@@ -91,7 +99,7 @@ def _elbo_fn(model, conditional: bool, eps: float, norm) -> Callable:
 
 
 def make_train_step(model, opt: torch.optim.Optimizer, conditional: bool = False,
-                    eps: float = 1e-8, norm=None) -> Callable:
+                    eps: float = 1e-8, norm=None, keep_grads: bool = False) -> Callable:
     """``step(x, y=None, generator=None, sample_eps=None) -> metrics``: one
     Adam update of ``model`` on the batch ``x`` (B, F), conditioned on the
     labels ``y`` (B, Yd) when ``conditional``."""
@@ -99,7 +107,7 @@ def make_train_step(model, opt: torch.optim.Optimizer, conditional: bool = False
 
     def step(x, y=None, generator=None, sample_eps=None):
         model.train()
-        opt.zero_grad(set_to_none=True)
+        _zero_grad(opt, keep_grads)
         total, recon, kl = elbo(x, y, generator, sample_eps)
         total.backward()
         _fill_missing_grads(opt)
@@ -165,7 +173,8 @@ def _semisup_loss_fn(model, objective: str, alpha: float, y_cond: str,
 
 
 def make_semisup_step(model, opt: torch.optim.Optimizer, objective: str, alpha: float,
-                      y_cond: str = "soft", eps: float = 1e-8) -> Callable:
+                      y_cond: str = "soft", eps: float = 1e-8,
+                      keep_grads: bool = False) -> Callable:
     """``step(x, y, generator=None, sample_eps=None) -> metrics``: one Adam
     update of a ``CVAE_v3`` on the semi-supervised objective (``uloss`` or
     ``lloss``) minus ``alpha * BCE(y_hat_soft, y)``; a positive alpha pushes
@@ -178,7 +187,7 @@ def make_semisup_step(model, opt: torch.optim.Optimizer, objective: str, alpha: 
 
     def step(x, y, generator=None, sample_eps=None):
         model.train()
-        opt.zero_grad(set_to_none=True)
+        _zero_grad(opt, keep_grads)
         loss, metrics = loss_fn(x, y, generator, sample_eps)
         loss.backward()
         _fill_missing_grads(opt)
@@ -226,10 +235,10 @@ def adversarial_groups(model):
     return enc, list(model.auxiliary.parameters())
 
 
-def init_adversarial_state(model, lr: float = 1e-4):
+def init_adversarial_state(model, lr: float = 1e-4, capturable: bool = False):
     """The two players' Adams: (encoder group's, auxiliary's)."""
     enc, aux = adversarial_groups(model)
-    return adam([p for _, p in enc], lr), adam(aux, lr)
+    return adam([p for _, p in enc], lr, capturable), adam(aux, lr, capturable)
 
 
 def _enc_adversary_fn(enc_adversary: str, eps: float) -> Callable:
@@ -295,7 +304,8 @@ def make_adversarial_step(model, opt_enc: torch.optim.Optimizer,
                           gamma: float, eps: float = 1e-8,
                           legacy_aux_coupling: bool = False, use_y_hat_soft: bool = False,
                           freeze_substring: str | None = None, y_cond: str | None = None,
-                          norm=None, enc_adversary: str = "bce") -> Callable:
+                          norm=None, enc_adversary: str = "bce",
+                          keep_grads: bool = False) -> Callable:
     """``step(x, y, generator=None, sample_eps=None) -> metrics``: one move
     of each player, on a ``DisentangledVAE`` or a ``CVAE_v4`` with the
     optimizers of :func:`init_adversarial_state`.
@@ -326,7 +336,7 @@ def make_adversarial_step(model, opt_enc: torch.optim.Optimizer,
 
     def step(x, y, generator=None, sample_eps=None):
         model.train()
-        opt_enc.zero_grad(set_to_none=True)
+        _zero_grad(opt_enc, keep_grads)
         enc_loss, z, metrics, _ = compute(x, y, generator, sample_eps)
         enc_loss.backward()
         _fill_missing_grads(opt_enc)
@@ -336,7 +346,7 @@ def make_adversarial_step(model, opt_enc: torch.optim.Optimizer,
 
         # the auxiliary moves on the latents of the encoder before its step;
         # enc_loss.backward() left -beta * d adversary in its gradients
-        opt_aux.zero_grad(set_to_none=True)
+        _zero_grad(opt_aux, keep_grads)
         if has_gamma or has_legacy:
             y_hat_z = model.classify_from_z(z.detach())
             aux_loss = torch.zeros((), device=x.device)
@@ -375,3 +385,114 @@ def make_adversarial_eval_step(model, alpha: float, beta: float, gamma: float,
         return metrics
 
     return evaluate
+
+
+# ---------------------------------------------------------------------------
+# K optimizer steps per dispatch
+# ---------------------------------------------------------------------------
+
+
+class MultiStep:
+    """K calls of one train ``step`` per dispatch: the port of JAX's
+    ``lax.scan`` over K steps (``make_multi_train_step``,
+    ``make_gather_train_steps``, ``index_fed_steps`` and ``multi=True`` of the
+    semisup and adversarial steps).
+
+    ``__call__(xs, ys, generator, sample_eps=None)`` runs step k on ``xs[k]``
+    (K, B, F) and ``ys[k]`` (K, B, Yd) or None; with ``data = (x_all,
+    y_all or None)``, the device-resident split, ``xs`` is instead (K, B)
+    row indices, gathered inside. It returns a (K, M) float32 tensor: row k
+    holds step k's metrics in the order of ``names``. The steps run on the
+    optimizers' parameters' device; host inputs (pinned, on the card) are
+    copied there. Step k draws the noise that the k-th of K single calls on
+    ``generator`` would draw, or takes ``sample_eps[k]``.
+
+    On the CPU the K steps run one after another: the plain version. On
+    CUDA one ``torch.cuda.CUDAGraph`` per input shape holds the K steps.
+    The first dispatch of a shape runs its K steps eagerly on the capture
+    stream, as the capture's warm-up: they are real steps, so the warm-up
+    adds no optimizer step and no noise draw. The graph is then captured
+    (which runs nothing) and replayed for every later dispatch of that
+    shape, each replay reading the inputs copied into its static buffers.
+    ``generator`` is registered with each graph, so a replay draws from its
+    current state and advances it as the K eager steps would; re-seeding it
+    in place (``manual_seed``) between replays is seen by the next replay.
+    The steps must be built with ``keep_grads=True`` and their
+    ``optimizers`` with ``capturable=True``. There is no eager fallback on
+    CUDA: what the graph cannot take raises before any step runs.
+    """
+
+    def __init__(self, step: Callable, optimizers, data=None):
+        self.step = step
+        self.optimizers = list(optimizers)
+        self.data = data
+        self.names = None
+        self._graphs = {}
+        self._stream = None
+
+    def _rows(self, xs, ys, k):
+        if self.data is None:
+            return xs[k], None if ys is None else ys[k]
+        x_all, y_all = self.data
+        return (x_all.index_select(0, xs[k]),
+                None if y_all is None else y_all.index_select(0, xs[k]))
+
+    def _eager(self, xs, ys, generator, sample_eps=None):
+        out = []
+        for k in range(xs.shape[0]):
+            x, y = self._rows(xs, ys, k)
+            m = self.step(x, y, generator=generator,
+                          sample_eps=None if sample_eps is None else sample_eps[k])
+            if self.names is None:
+                self.names = list(m)
+            out.append(torch.stack([m[n] for n in self.names]))
+        return torch.stack(out)
+
+    def __call__(self, xs, ys=None, generator=None, sample_eps=None) -> torch.Tensor:
+        dev = self.optimizers[0].param_groups[0]["params"][0].device  # the model's
+        if dev.type != "cuda":
+            return self._eager(xs.to(dev), None if ys is None else ys.to(dev), generator,
+                               sample_eps)
+        if sample_eps is not None:
+            raise ValueError("a CUDA graph draws its noise from the generator; "
+                             "sample_eps is the plain version's")
+        if generator is None or generator.device.type != "cuda":
+            raise ValueError("a CUDA graph over K steps needs a CUDA generator")
+        if not all(g["capturable"] for o in self.optimizers for g in o.param_groups):
+            raise ValueError("a CUDA graph over K steps needs capturable optimizers "
+                             "(adam(..., capturable=True))")
+        key = (tuple(xs.shape), None if ys is None else tuple(ys.shape))
+        entry = self._graphs.get(key)
+        if entry is None:
+            return self._warm_up_and_capture(key, xs, ys, generator, dev)
+        graph, s_xs, s_ys, s_out = entry
+        s_xs.copy_(xs, non_blocking=True)
+        if s_ys is not None:
+            s_ys.copy_(ys, non_blocking=True)
+        graph.replay()
+        return s_out.clone()
+
+    def _warm_up_and_capture(self, key, xs, ys, generator, dev):
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError(
+                "this torch cannot register a generator with a CUDA graph "
+                "(CUDAGraph.register_generator_state); steps_per_dispatch > 1 needs it")
+        s_xs = torch.empty(xs.shape, dtype=xs.dtype, device=dev)
+        s_ys = None if ys is None else torch.empty(ys.shape, dtype=ys.dtype, device=dev)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        cur = torch.cuda.current_stream(dev)
+        s_xs.copy_(xs, non_blocking=True)
+        if s_ys is not None:
+            s_ys.copy_(ys, non_blocking=True)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            out = self._eager(s_xs, s_ys, generator)
+        cur.wait_stream(self._stream)
+        out.record_stream(cur)  # read on the caller's stream
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, stream=self._stream):
+            s_out = self._eager(s_xs, s_ys, generator)
+        self._graphs[key] = (graph, s_xs, s_ys, s_out)
+        return out

@@ -45,3 +45,41 @@ def make_tree(root, utts=UTTS, video=False, seed=0):
             noisy_dir.mkdir(parents=True, exist_ok=True)
             write_wav(noisy_dir / f"{utt}.wav", clean + 0.1 * rng.standard_normal(n), 16000)
     return utts
+
+
+RAW_UTTS = {"train": {("spk01", "sa1"): 16000, ("spk01", "sx2"): 22400, ("spk02", "si3"): 11200},
+            "validation": {("spk03", "sa1"): 14400, ("spk03", "sx9"): 19200}}
+# lip-video frame counts (X is (height, width, frames)) of the utterances
+# that have one: fewer frames than the audio, and a height below both, so
+# the trim and the legacy trim (to the height) each cut
+RAW_VIDEOS = {("train", "spk01", "sx2"): (20, 3, 40), ("validation", "spk03", "sa1"): (30, 3, 25)}
+SPLIT_DIRS = {"train": "train", "validation": "dev"}
+
+
+def make_raw_tree(raw, proc=None, utts=RAW_UTTS, videos=RAW_VIDEOS, seed=0):
+    """A raw NTCD-TIMIT tree for the frame-set builders under ``raw``: the
+    clean utterances as ``ntcd_timit/Clean/volunteers/<spk>/straightcam/
+    <utt>.wav`` (tones in bursts over a little noise) and a placeholder
+    ``ntcd_timit/matlab_raw/<split dir>/<spk>/<utt>.mat`` for each (the
+    catalog lists the .mat files); with ``proc``, the processed lip-video
+    h5s of ``videos`` under ``proc/ntcd_timit/matlab_raw/...`` (h5py)."""
+    rng = np.random.default_rng(seed)
+    for split, entries in utts.items():
+        for (spk, utt), n in entries.items():
+            mat = raw / "ntcd_timit" / "matlab_raw" / SPLIT_DIRS[split] / spk / f"{utt}.mat"
+            mat.parent.mkdir(parents=True, exist_ok=True)
+            mat.write_bytes(b"")
+            wav = raw / "ntcd_timit" / "Clean" / "volunteers" / spk / "straightcam" / f"{utt}.wav"
+            wav.parent.mkdir(parents=True, exist_ok=True)
+            t = np.arange(n) / 16000
+            tone = np.sin(2 * np.pi * (120 + 200 * rng.random()) * t) * (t % 0.4 < 0.25)
+            write_wav(wav, 0.3 * tone + 0.01 * rng.standard_normal(n), 16000)
+    if proc is not None:
+        import h5py
+
+        for (split, spk, utt), shape in videos.items():
+            path = proc / "ntcd_timit" / "matlab_raw" / SPLIT_DIRS[split] / spk / \
+                f"{utt}_upsampled.h5"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            with h5py.File(path, "w") as f:
+                f["X"] = np.zeros(shape, np.float32)

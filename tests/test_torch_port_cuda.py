@@ -561,3 +561,249 @@ def test_cuda_fit_semisup_and_conditional_few_steps(cuda, tmp_path):
     _, hist = fit_vae(CVAE(F, 513, L, (128, 128)), ibm_train, ibm_valid, tmp_path / "m2",
                       "M2", conditional=True, cfg=cfg)
     assert all(np.isfinite(h["valid"]["elbo"]) for h in hist)
+
+
+# ---------------------------------------------------------------------------
+# steps_per_dispatch > 1: one CUDA graph over K steps
+# ---------------------------------------------------------------------------
+
+K_STEPS = 8
+STEP_KINDS = ["m1", "m2-ibm", "semisup", "adversarial"]
+
+
+def _k_step_pair(kind, seed=0):
+    """A model with a capturable, gradient-keeping train step, built the same
+    way twice from one seed: (model, step, optimizers, y_dim)."""
+    from dvae_tpu_torch.models.blocks import init_xavier_
+    from dvae_tpu_torch.train.steps import (adam, init_adversarial_state, make_adversarial_step,
+                                            make_semisup_step, make_train_step)
+
+    make = {"m1": lambda: VAE(F, L, (128, 128)), "m2-ibm": lambda: CVAE(F, 513, L, (128, 128)),
+            "semisup": lambda: CVAE_v3(F, 1, L, (128, 128)),
+            "adversarial": lambda: DisentangledVAE(F, 1, L, (128, 128))}[kind]
+    model = init_xavier_(make(), torch.Generator().manual_seed(seed)).cuda()
+    if kind == "adversarial":
+        opts = init_adversarial_state(model, 1e-4, capturable=True)
+        step = make_adversarial_step(model, *opts, 0.0, 10.0, 1.0, keep_grads=True)
+    else:
+        opts = (adam(model.parameters(), 1e-4, capturable=True),)
+        step = (make_semisup_step(model, opts[0], "uloss", 10.0, keep_grads=True)
+                if kind == "semisup" else
+                make_train_step(model, opts[0], kind != "m1", keep_grads=True))
+    return model, step, opts, {"m1": 0, "m2-ibm": 513}.get(kind, 1)
+
+
+def _adam_state(opts):
+    return [(k, v) for o in opts for st in o.state.values() for k, v in sorted(st.items())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fed", ["host", "device"])
+@pytest.mark.parametrize("kind", STEP_KINDS)
+def test_cuda_multistep_graph_matches_eager_steps(cuda, kind, fed):
+    """One replay of the K-step graph against K eager calls of the same step
+    on a twin model with the same capturable Adam and the same generator
+    state: metrics (rtol 1e-5), weights and Adam moments (2e-6 absolute),
+    over three dispatches (the eager warm-up, then two replays) with the
+    generator re-seeded in place before the last. Prints whether each
+    agreed bitwise."""
+    from dvae_tpu_torch.train.steps import MultiStep
+
+    model_a, step_a, opts_a, y_dim = _k_step_pair(kind)
+    model_b, step_b, opts_b, _ = _k_step_pair(kind)
+    rng = np.random.default_rng(5)
+    n = 4 * K_STEPS * 128
+    x_all = torch.from_numpy((np.abs(rng.standard_normal((n, F))) + 0.1).astype(np.float32)).cuda()
+    y_all = (torch.from_numpy((rng.uniform(size=(n, y_dim)) > 0.5).astype(np.float32)).cuda()
+             if y_dim else None)
+    multi = MultiStep(step_a, opts_a, (x_all, y_all) if fed == "device" else None)
+    ga = torch.Generator(device=cuda).manual_seed(11)
+    gb = torch.Generator(device=cuda).manual_seed(11)
+    bitwise = []
+    for d in range(3):
+        if d == 2:
+            ga.manual_seed(12)
+            gb.manual_seed(12)
+        idx = torch.from_numpy(rng.permutation(n)[:K_STEPS * 128].reshape(K_STEPS, 128)).cuda()
+        xs = x_all[idx]
+        ys = None if y_all is None else y_all[idx]
+        got = (multi(idx, None, generator=ga) if fed == "device" else
+               multi(xs.cpu().pin_memory(), None if ys is None else ys.cpu().pin_memory(),
+                     generator=ga))
+        want = torch.stack([torch.stack(list(step_b(xs[k], None if ys is None else ys[k],
+                                                    generator=gb).values()))
+                            for k in range(K_STEPS)])
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6)
+        same = torch.equal(got, want)
+        for (na, pa), (_, pb) in zip(model_a.state_dict().items(), model_b.state_dict().items()):
+            np.testing.assert_allclose(pa.cpu().numpy(), pb.cpu().numpy(), rtol=0, atol=2e-6,
+                                       err_msg=f"{na} dispatch {d}")
+            same = same and torch.equal(pa, pb)
+        for (k, va), (_, vb) in zip(_adam_state(opts_a), _adam_state(opts_b)):
+            np.testing.assert_allclose(va.cpu().numpy(), vb.cpu().numpy(), rtol=1e-5, atol=2e-6)
+            same = same and torch.equal(va.cpu(), vb.cpu())
+        bitwise.append(same)
+    print(f"{kind} {fed}-fed graph vs eager K={K_STEPS}: bitwise per dispatch {bitwise}")
+    assert len(multi._graphs) == 1
+
+
+def _k_fit(kind, model_dir, cfg, device="cuda"):
+    data = {"m1": 0, "m2-ibm": 513}.get(kind, 1)
+    train, valid = _labelled_set(2500, max(data, 1), 7), _labelled_set(300, max(data, 1), 8)
+    if kind == "m1":
+        model = VAE(F, L, (128, 128))
+        return model, fit_vae(model, train, valid, model_dir, "M1", cfg=cfg, device=device)
+    if kind == "m2-ibm":
+        model = CVAE(F, 513, L, (128, 128))
+        return model, fit_vae(model, train, valid, model_dir, "M2", conditional=True, cfg=cfg,
+                              device=device)
+    if kind == "semisup":
+        model = CVAE_v3(F, 1, L, (128, 128))
+        return model, fit_semisup(model, train, valid, model_dir, "M2", "uloss", 10.0, cfg=cfg,
+                                  device=device)
+    model = DisentangledVAE(F, 1, L, (128, 128))
+    return model, fit_adversarial(model, train, valid, model_dir, "M2", 0.0, 10.0, 1.0,
+                                  cfg=cfg, device=device)
+
+
+def _fit_gap(a, b, hist_a, hist_b):
+    """(largest weight difference, largest relative metric difference) of
+    two fits."""
+    w = max(float((va - vb).abs().max())
+            for va, vb in zip(a.state_dict().values(), b.state_dict().values()))
+    m = max(abs(ha[part][k] - hb[part][k]) / max(abs(hb[part][k]), 1e-30)
+            for ha, hb in zip(hist_a, hist_b) for part in ("train", "valid") for k in ha[part])
+    return w, m
+
+
+def _fits_agree(a, b, hist_a, hist_b):
+    for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
+        np.testing.assert_allclose(va.cpu().numpy(), vb.cpu().numpy(), rtol=0, atol=2e-6,
+                                   err_msg=k)
+    for ha, hb in zip(hist_a, hist_b):
+        for part in ("train", "valid"):
+            for k in ha[part]:
+                np.testing.assert_allclose(ha[part][k], hb[part][k], rtol=1e-5, atol=1e-6,
+                                           err_msg=f"{part} {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_data", [False, True], ids=["host", "device"])
+@pytest.mark.parametrize("kind", ["m1", "semisup", "adversarial"])
+def test_cuda_fit_k8_matches_k1(cuda, tmp_path, monkeypatch, kind, device_data):
+    """A whole fit at K = 8 against K = 1: 19 full batches of 128 per epoch
+    go as dispatches of 8, 8 and 3 (two graphs, each first run eagerly as
+    its warm-up, then replayed), the ragged batch of 68 alone; the same
+    batches and noise. Against a K = 1 run whose Adams are capturable too,
+    the weights and every metric are bitwise the same. Against the default
+    K = 1 run (Adam's bias correction in f32 on the card against f64 on the
+    host) M1 and the semisup step stay within the train-step tolerances;
+    the adversarial game amplifies that rounding beyond them (measured:
+    9.5e-6 on 0.4% of the first-layer weights after two epochs), so its
+    gap is printed."""
+    from dvae_tpu_torch.train import loop
+
+    cfg = LoopConfig(batch_size=128, end_epoch=3, seed=3, device_data=device_data)
+    m8, (_, h8) = _k_fit(kind, tmp_path / "k8",
+                         LoopConfig(**{**cfg.__dict__, "steps_per_dispatch": K_STEPS}))
+    m1, (_, h1) = _k_fit(kind, tmp_path / "k1", cfg)
+    with monkeypatch.context() as mp:
+        mp.setattr(loop, "_capturable", lambda dev, multi: dev.type == "cuda")
+        mc, (_, hc) = _k_fit(kind, tmp_path / "k1c", cfg)
+    assert hc == h8
+    assert all(torch.equal(v, m8.state_dict()[k]) for k, v in mc.state_dict().items())
+    gap = _fit_gap(m8, m1, h8, h1)
+    print(f"{kind} {'device' if device_data else 'host'}-fed fit K={K_STEPS} vs K=1 "
+          f"(default Adam): max weight diff {gap[0]:.3e}, max metric rel diff {gap[1]:.3e}")
+    if kind != "adversarial":
+        _fits_agree(m8, m1, h8, h1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["m1", "adversarial"])
+def test_cuda_resume_changes_steps_per_dispatch(cuda, tmp_path, kind):
+    """A K = 1 checkpoint resumes into a K = 8 run (Adam made capturable,
+    its step counts moved to the card) and a K = 8 checkpoint into a K = 1
+    run (back to the default Adam, counts on the CPU). M1 ends within the
+    train-step tolerances of the uninterrupted K = 1 run; the adversarial
+    game's gap, from the other Adam rounding of one epoch, is printed."""
+    from dvae_tpu_torch.train import checkpoint as ckpt
+
+    cfg = LoopConfig(batch_size=128, end_epoch=4, seed=4)
+    full, (_, hist) = _k_fit(kind, tmp_path / "full", cfg)
+    for first, then in ((1, K_STEPS), (K_STEPS, 1)):
+        d = tmp_path / f"{first}-{then}"
+        _k_fit(kind, d, LoopConfig(**{**cfg.__dict__, "end_epoch": 3,
+                                      "steps_per_dispatch": first}))
+        saved = torch.load(next(d.glob("*_epoch_002_*.opt.pt")), weights_only=True)
+        groups = [saved] if "param_groups" in saved else list(saved.values())
+        assert all(g["capturable"] == (first > 1) for o in groups for g in o["param_groups"])
+        resumed, (_, hist_r) = _k_fit(kind, d, LoopConfig(**{**cfg.__dict__, "start_epoch": 3,
+                                                             "steps_per_dispatch": then}))
+        gap = _fit_gap(resumed, full, hist_r, hist[2:])
+        print(f"{kind} resume K={first} -> K={then} vs uninterrupted K=1: max weight diff "
+              f"{gap[0]:.3e}, max metric rel diff {gap[1]:.3e}")
+        if kind == "m1":
+            _fits_agree(full, resumed, hist[2:], hist_r)
+        assert all(np.isfinite(list(h["valid"].values())).all() for h in hist_r)
+    assert ckpt.best_checkpoint(tmp_path / f"{K_STEPS}-1").exists()
+
+
+@pytest.mark.cuda
+def test_cuda_multistep_never_runs_eager_k_steps(cuda):
+    """On the card K > 1 takes the graph or raises before any step runs:
+    with a non-capturable Adam, a CPU generator or given noise."""
+    from dvae_tpu_torch.train.steps import MultiStep, adam, make_train_step
+
+    model = VAE(F, L, (128, 128)).cuda()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    xs = torch.rand((K_STEPS, 128, F), device=cuda) + 0.1
+    opt = adam(model.parameters())
+    with pytest.raises(ValueError, match="capturable"):
+        MultiStep(make_train_step(model, opt, keep_grads=True), [opt])(
+            xs, generator=torch.Generator(device=cuda))
+    opt = adam(model.parameters(), capturable=True)
+    multi = MultiStep(make_train_step(model, opt, keep_grads=True), [opt])
+    with pytest.raises(ValueError, match="CUDA generator"):
+        multi(xs, generator=torch.Generator())
+    with pytest.raises(ValueError, match="sample_eps"):
+        multi(xs, generator=torch.Generator(device=cuda),
+              sample_eps=torch.zeros((K_STEPS, 128, L), device=cuda))
+    assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+    assert not opt.state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labels", ["vad_labels", "ibm_labels"])
+def test_cuda_create_train_set_npz_matches_cpu(cuda, tmp_path, labels):
+    """``create_train_set --format npz`` on the card (two utterances per
+    launch: one launch per chunk) against the same CLI on the CPU: the rows
+    at the spectrogram's tolerance, the statistics at rtol 1e-4, VAD labels
+    exactly and IBM labels on all but 1e-4 of the bins."""
+    from _ntcd_tree import make_raw_tree
+    from dvae_tpu_torch.cli import create_train_set
+
+    out = {}
+    for platform in ("cuda", "cpu"):
+        root = tmp_path / platform / "data"
+        make_raw_tree(root / "subset" / "raw")
+        before = stft_power.launches
+        path = create_train_set.main(["--data-root", str(root), "--labels", labels,
+                                      "--format", "npz", "--chunk-utterances", "2",
+                                      "--platform", platform])
+        assert stft_power.launches - before == (3 if platform == "cuda" else 0)
+        with np.load(path) as f:
+            out[platform] = {k: f[k] for k in f.files}
+    got, want = out["cuda"], out["cpu"]
+    assert set(got) == set(want)
+    for split in ("train", "validation"):
+        x, w = got[f"X_{split}"], want[f"X_{split}"]
+        assert x.shape == w.shape
+        assert float((np.abs(x - w) / (1e-4 * np.abs(w) + 1e-6 * w.max())).max()) <= 1.0
+        if labels == "vad_labels":
+            np.testing.assert_array_equal(got[f"Y_{split}"], want[f"Y_{split}"])
+        else:
+            assert (got[f"Y_{split}"] != want[f"Y_{split}"]).mean() <= 1e-4
+    for k in ("X_train_mean", "X_train_std"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4)

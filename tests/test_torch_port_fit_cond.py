@@ -162,9 +162,10 @@ def test_labelled_fitters_refuse(tmp_path):
                                           device="cpu")):
         with pytest.raises(ValueError, match="needs a dataset with labels"):
             fit(unlabelled)
-    for cfg, kw, item in ((LoopConfig(end_epoch=2, steps_per_dispatch=2), {}, "A12.5"),
-                          (LoopConfig(end_epoch=2), {"mesh": object()}, "A14")):
-        with pytest.raises(NotImplementedError, match=item):
+    for cfg, kw, err, item in (
+            (LoopConfig(end_epoch=2, steps_per_dispatch=0), {}, ValueError, "steps_per_dispatch"),
+            (LoopConfig(end_epoch=2), {"mesh": object()}, NotImplementedError, "A14")):
+        with pytest.raises(err, match=item):
             fit_adversarial(DisentangledVAE(F, 1, Z, H), train, valid, tmp_path, "a",
                             0.0, 1.0, 1.0, cfg=cfg, device="cpu", **kw)
 

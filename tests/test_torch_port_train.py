@@ -189,8 +189,9 @@ def test_elbo_steps_match_jax(std_norm):
 
 def test_conditional_raises(tmp_path):
     """The conditional (M2) step trains and raises only without labels;
-    what stays unported (K steps per dispatch, a mesh) still raises, naming
-    its ROADMAP item. Parity with JAX: tests/test_torch_port_train_cond.py."""
+    what stays unported (a mesh) still raises, naming its ROADMAP item, and
+    so does a dispatch of fewer than one step. Parity with JAX:
+    tests/test_torch_port_train_cond.py."""
     tm = CVAE(513, 1, 16, H)
     step = make_train_step(tm, adam(tm.parameters()), conditional=True)
     x = torch.from_numpy(_frames(32, 5))
@@ -202,9 +203,10 @@ def test_conditional_raises(tmp_path):
     with pytest.raises(ValueError, match="labels y"):
         step(x)
     train = FrameDataset.from_arrays(_frames(64, 1), y.numpy().repeat(2, 0))
-    for cfg, kw, item in ((LoopConfig(end_epoch=2, steps_per_dispatch=4), {}, "A12.5"),
-                          (LoopConfig(end_epoch=2), {"mesh": object()}, "A14")):
-        with pytest.raises(NotImplementedError, match=item):
+    for cfg, kw, err, item in (
+            (LoopConfig(end_epoch=2, steps_per_dispatch=0), {}, ValueError, "steps_per_dispatch"),
+            (LoopConfig(end_epoch=2), {"mesh": object()}, NotImplementedError, "A14")):
+        with pytest.raises(err, match=item):
             fit_vae(CVAE(513, 1, 16, H), train, train, tmp_path, "M2", conditional=True,
                     cfg=cfg, device="cpu", **kw)
 
@@ -319,8 +321,8 @@ def test_fit_vae_std_norm_and_unported_options(tmp_path):
         _fit(tmp_path, LoopConfig(end_epoch=2), conditional=True)
     with pytest.raises(NotImplementedError, match="A14"):
         _fit(tmp_path, LoopConfig(end_epoch=2), mesh=object())
-    with pytest.raises(NotImplementedError, match="CUDA graph"):
-        _fit(tmp_path, LoopConfig(end_epoch=2, steps_per_dispatch=4))
+    with pytest.raises(ValueError, match="steps_per_dispatch"):
+        _fit(tmp_path, LoopConfig(end_epoch=2, steps_per_dispatch=0))
     with pytest.raises(FileNotFoundError, match="no epoch-4 checkpoint"):
         _fit(tmp_path / "empty", LoopConfig(start_epoch=5, end_epoch=6))
 
