@@ -133,12 +133,34 @@ Phases, in order; any failure exits non-zero:
    ELBO, the conditional ELBO at y_dim 513, semisup and the adversarial
    step, one replay of the K = 8 graph against 8 eager calls on a twin
    (within the train-step tolerances, bitwise reported), ms per optimizer
-   step at K = 1, 8, 32 host-fed and device-resident (host clock over an
-   epoch, CUDA events over warm dispatches), and the device's idle share
+   step at K = 1, 8, 32 host-fed and K = 1, 8 device-resident (host clock
+   over an epoch, CUDA events over warm dispatches), and the device's idle share
    over one epoch at K = 1 and 32 (``chip_smoke.py --kstep-profile``, a
    process of its own under ``torch.profiler``); the chain and the STFT
    power kernel at this path's launches, each with the card's name and
-   power limit.
+   power limit;
+14. the audio-VAD CLI chain at full width, after phase 13: phase 12's
+   gated utterances and 16 test utterances as a raw NTCD tree under
+   ``build/`` with their mixtures on the subset grid (Babble and LR at -5
+   dB) and a lip-video ``.npz`` per train utterance (shorter than the
+   audio, so the trim cuts); ``python -m
+   dvae_tpu_torch.cli.create_audio_train_set --format npz`` as a process of
+   its own (one STFT power launch per chunk of 64 clean utterances and one
+   per chunk of noisy train mixtures, counted there and again in process),
+   held against an in-process CPU build (VAD labels exactly, the noisy
+   statistics at rtol 1e-4); ``train_audio_net --std-norm --stats-h5
+   <.npz>`` at ``LSTMVad(513, 1024, 2)``, batch 16, 3 epochs (exit 0, a
+   finite BCE that falls, one ``.pt`` per epoch, one B2 launch per batch);
+   ``predict_vad_labels --std-norm --snr all`` (a hard and a soft file per
+   mixture with the oracle's frame count, the ``vs oracle:`` F1 printed
+   without a limit, a rerun predicts nothing); ``evaluate_ntcd_m2`` on
+   phase 12's best M2 VAD ``.pt`` with ``--y-source classifier`` and
+   ``oracle``, both from the ``.npz`` labels (niter + 1 bf16-body chain
+   launches per batch, finite outputs, the Wiener partition); then B2 held
+   against its plain version and timed at the builder's chunk (power) and a
+   predict batch (log, centred), B1 at the sweep's first batch, the
+   full-width LSTM train step and predict batch, and each CLI's wall, each
+   with the card's name and power limit.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -154,6 +176,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1580,10 +1603,12 @@ def gated(clean: np.ndarray, rng: np.random.Generator) -> np.ndarray:
             ).astype(np.float32)
 
 
-def labelled_training_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str) -> list:
+def labelled_training_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str,
+                            keep: str) -> tuple:
     """Phase 12 on the card: labelled frame sets through B2, the conditional
     trainers at full width, and two trained priors served through B1;
-    returns the kernels-line entries of this path."""
+    returns the kernels-line entries of this path and the best M2 VAD
+    ``.pt``, copied to ``keep`` for phase 14."""
     import itertools
 
     import torch
@@ -1796,8 +1821,10 @@ def labelled_training_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str) -
     stft_entry = time_stft(padded_batch(clean_train)[0].to(dev), False, "labelled frame set",
                            n_build, cuda_ms, tag, phase=12)
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all")
+    m2_vad = os.path.join(keep, "m2_vad.pt")
+    shutil.copyfile(best["M2_VAD"], m2_vad)
     return [chain_entry("mh_chain (trained conditional priors)", b1_v5 + b1_ibm, seg),
-            stft_entry]
+            stft_entry], m2_vad
 
 
 CLI_EPOCHS, K_TIMES, CLI_CHUNK = 2, (1, 8, 32), 64
@@ -1815,7 +1842,8 @@ def write_raw_tree(raw: str, splits: dict) -> dict:
 
     paths = {}
     for split, utts in splits.items():
-        sdir, pre = {"train": ("train", "tr"), "validation": ("dev", "va")}[split]
+        sdir, pre = {"train": ("train", "tr"), "validation": ("dev", "va"),
+                     "test": ("test", "te")}[split]
         paths[split] = []
         for i, u in enumerate(utts):
             spk = f"{pre}{i:04d}"
@@ -2157,7 +2185,8 @@ def cli_chain_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str) -> list:
     times = {}
     for kind in KSTEP_KINDS:
         for device_data in (False, True):
-            for k in K_TIMES:
+            # K = 32 host-fed only: device_data at K = 32 matched K = 8 (PR 11)
+            for k in K_TIMES if not device_data else K_TIMES[:-1]:
                 _, _, step, multi, feed = kstep_setup(kind, k, ds_of(kind), device_data)
                 gen = torch.Generator(device=dev).manual_seed(SEED)
                 kstep_epoch(step, multi, feed, k, gen, np.random.default_rng(SEED))
@@ -2181,9 +2210,9 @@ def cli_chain_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str) -> list:
                 ev_ms = cuda_ms(dispatch, reps=128 // k, warm=2) / k
                 times[kind, device_data, k] = (host_ms, ev_ms)
         rows = "; ".join(
-            f"K={k}: host-fed {times[kind, False, k][0]:.4f} / {times[kind, False, k][1]:.4f}, "
-            f"device_data {times[kind, True, k][0]:.4f} / {times[kind, True, k][1]:.4f}"
-            for k in K_TIMES)
+            f"K={k}: host-fed {times[kind, False, k][0]:.4f} / {times[kind, False, k][1]:.4f}"
+            + (f", device_data {times[kind, True, k][0]:.4f} / {times[kind, True, k][1]:.4f}"
+               if (kind, True, k) in times else "") for k in K_TIMES)
         log(f"phase 13: {kind} ms per optimizer step at batch 128 (host clock over an epoch of "
             f"{n} steps / CUDA events over 128 steps of warm dispatches): {rows} {tag}")
 
@@ -2212,6 +2241,304 @@ def cli_chain_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str) -> list:
                            phase=13)
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all")
     return [chain_entry("mh_chain (CLI-trained priors)", b1_v5 + b1_m2, seg), stft_entry]
+
+
+AUDIO_TEST_UTTS, AUDIO_EPOCHS, AUDIO_CHUNK = 16, 3, 64
+AUDIO_NOISES = ("Babble", "LR")
+
+
+def write_audio_tree(raw: str, proc: str, splits: dict, rng: np.random.Generator) -> dict:
+    """``splits`` ({split: clean utterances}) as a raw NTCD-TIMIT tree under
+    ``raw`` (:func:`write_raw_tree`), with each utterance's mixtures on the
+    subset grid (Babble and LR at -5 dB: white noise scaled to -5 dB of the
+    utterance's power, a draw each) under ``ntcd_timit/u/drspeech/data/
+    TCDTIMIT/Noisy_TCDTIMIT/<noise>/-5/volunteers/<spk>/straightcam/``, and a
+    processed lip video ``.npz`` per train utterance under ``proc``
+    (``X`` (4, 4, frames) shorter than the audio, so that the statistics'
+    trim cuts). Returns {split: the clean wav paths}."""
+    from dvae_tpu_torch.data.io import write_wav
+
+    paths = write_raw_tree(raw, splits)
+    noisy = os.path.join(raw, "ntcd_timit", "u", "drspeech", "data", "TCDTIMIT",
+                         "Noisy_TCDTIMIT")
+    for split, wavs in paths.items():
+        for wav, clean in zip(wavs, splits[split]):
+            spk = wav.split(os.sep)[-3]
+            for noise in AUDIO_NOISES:
+                n = rng.standard_normal(len(clean))
+                n *= np.sqrt(np.mean(clean ** 2) * 10 ** 0.5 / np.mean(n ** 2))
+                mix = clean + n
+                path = os.path.join(noisy, noise, "-5", "volunteers", spk, "straightcam",
+                                    "sa1.wav")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                write_wav(path, 0.9 * mix / np.abs(mix).max(), FS)
+            if split == "train":
+                video = os.path.join(proc, "ntcd_timit", "matlab_raw", "train", spk,
+                                     "sa1_upsampled.npz")
+                os.makedirs(os.path.dirname(video), exist_ok=True)
+                np.savez(video, X=np.zeros((4, 4, len(clean) // 256 - 10), np.float32))
+    return paths
+
+
+def sequence_metrics(stdout: str) -> tuple:
+    """The (train, valid) metric dicts per epoch of ``fit_sequence``'s log."""
+    def parse(line):
+        return {k: float(v) for k, v in (kv.split("=") for kv in line.split(": ", 1)[1].split())}
+
+    lines = stdout.splitlines()
+    return ([parse(x) for x in lines if x.startswith("epoch ")],
+            [parse(x) for x in lines if x.startswith("  valid: ")])
+
+
+def audio_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str) -> list:
+    """Phase 14 on the card: the audio-VAD CLI chain at full width, from a
+    raw tree through ``create_audio_train_set --format npz`` (B2),
+    ``train_audio_net`` (``LSTMVad(513, 1024, 2)``, B2 per batch) and
+    ``predict_vad_labels`` (B2 per batch) to ``evaluate_ntcd_m2`` on the
+    classifier's and the oracle's labels (B1), every label file and
+    statistic an ``.npz``; then the kernels at this path's launches and the
+    times. Returns the kernels-line entries of this path."""
+    import torch
+
+    from dvae_tpu_torch.cli import evaluate_ntcd_m2, predict_vad_labels
+    from dvae_tpu_torch.data.builders import NOISY_STATS, build_audio_train_set, padded_batch
+    from dvae_tpu_torch.data.catalog import ntcd_timit
+    from dvae_tpu_torch.data.datasets import UtteranceDataset
+    from dvae_tpu_torch.data.io import read_labels, read_wav
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.evaluate import find_classifier_labels
+    from dvae_tpu_torch.enhance.mcem import McemConfig
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import CVAE, LSTMVad
+    from dvae_tpu_torch.ops import stft_power
+    from dvae_tpu_torch.ops.stft import StftConfig, pad_signal
+    from dvae_tpu_torch.train import checkpoint as ckpt
+    from dvae_tpu_torch.train.sequence import (
+        batch_utterances,
+        make_lstm_vad_predict,
+        make_lstm_vad_step,
+        pad_utterances,
+    )
+    from dvae_tpu_torch.train.steps import adam
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    # ---- 14a. phase 12's gated utterances and 16 more as a raw NTCD tree
+    # with mixtures, and a lip video per train utterance
+    rng, gate_rng = np.random.default_rng(SEED + 1), np.random.default_rng(SEED + 12)
+    splits = {"train": [gated(c, gate_rng) for c, _ in synthetic_parts(rng, M1_TRAIN_UTTS)],
+              "validation": [gated(c, gate_rng) for c, _ in synthetic_parts(rng, M1_VALID_UTTS)],
+              "test": [gated(c, gate_rng) for c, _ in synthetic_parts(rng, AUDIO_TEST_UTTS)]}
+    data = os.path.join(work, "data")
+    raw, proc = os.path.join(data, "subset", "raw"), os.path.join(data, "subset", "processed")
+    write_audio_tree(raw, proc, splits, np.random.default_rng(SEED + 14))
+    n_utts = {k: len(v) for k, v in splits.items()}
+
+    # ---- 14b. create_audio_train_set --format npz as a process of its own,
+    # then in process on the card (counted) and on the CPU (the reference)
+    walls = {}
+    t0 = time.perf_counter()
+    out, n_cli = run_module("dvae_tpu_torch.cli.create_audio_train_set",
+                            ["--data-root", data, "--format", "npz", "--chunk-utterances",
+                             str(AUDIO_CHUNK)], count_stft=True)
+    walls["create_audio_train_set"] = time.perf_counter() - t0
+    check(out.startswith("done"), f"create_audio_train_set said {out!r}")
+    stats = os.path.join(proc, NOISY_STATS + ".npz")
+    chunks = sum(-(-n // AUDIO_CHUNK) for n in n_utts.values())
+    noisy_chunks = -(-len(AUDIO_NOISES) * n_utts["train"] // AUDIO_CHUNK)
+    check(n_cli == chunks + noisy_chunks,
+          f"{n_cli} stft_power launches, expected {chunks} + {noisy_chunks} chunks")
+    outs = {}
+    for platform in ("cuda", "cpu"):
+        d = os.path.join(work, f"inproc_{platform}")
+        shutil.copytree(os.path.join(proc, "ntcd_timit", "matlab_raw"),
+                        os.path.join(d, "ntcd_timit", "matlab_raw"))
+        stft_power.launches = 0
+        t0 = time.perf_counter()
+        build_audio_train_set(raw, d, dataset_size="subset", fmt="npz", chunk=AUDIO_CHUNK,
+                              device=platform)
+        sync()
+        walls[f"build_audio_train_set ({platform}, in process)"] = time.perf_counter() - t0
+        outs[platform] = (d, stft_power.launches)
+    n_build = outs["cuda"][1]
+    check(n_build == n_cli and outs["cpu"][1] == 0, f"in-process launches {outs}")
+    label_rels = sorted(os.path.relpath(os.path.join(r, f), proc) for r, _, fs in os.walk(proc)
+                        for f in fs if f.endswith("_vad_labels_upsampled.npz"))
+    check(len(label_rels) == sum(n_utts.values()), f"{len(label_rels)} label files")
+    cpu_dir = outs["cpu"][0]
+    off = sum(int((read_labels(os.path.join(proc, r)) != read_labels(
+        os.path.join(cpu_dir, r))).sum()) for r in label_rels)
+    check(off == 0, f"{off} VAD labels differ from the CPU build")
+    with np.load(stats) as got, np.load(os.path.join(cpu_dir, NOISY_STATS + ".npz")) as want:
+        stat_err = {k: float((np.abs(got[k] - want[k]) / np.abs(want[k])).max())
+                    for k in ("X_train_mean", "X_train_std")}
+    check(max(stat_err.values()) <= 1e-4, f"noisy statistics against the CPU build: {stat_err}")
+    log(f"phase 14: create_audio_train_set --format npz in {walls['create_audio_train_set']:.2f}"
+        f" s (a process of its own): {n_utts} clean utterances, "
+        f"{len(AUDIO_NOISES) * sum(n_utts.values())} mixtures copied, {len(label_rels)} "
+        f"label .npz; {n_cli} stft_power launches ({chunks} chunks of clean labels + "
+        f"{noisy_chunks} of noisy train statistics, {AUDIO_CHUNK} utterances each), the "
+        f"same in process on the card ({walls['build_audio_train_set (cuda, in process)']:.2f}"
+        f" s); against the CPU build "
+        f"({walls['build_audio_train_set (cpu, in process)']:.2f} s): VAD labels exact, noisy "
+        f"log-power statistics max rel diff mean {stat_err['X_train_mean']:.3e}, std "
+        f"{stat_err['X_train_std']:.3e} (limit 1e-4) {tag}")
+
+    # ---- 14c. train_audio_net at the reference width, --std-norm from the .npz
+    models = os.path.join(work, "models")
+    run = os.path.join(models, "ntcd_audio_vad_lstm_1024x2_norm")
+    t0 = time.perf_counter()
+    out, n_train = run_module("dvae_tpu_torch.cli.train_audio_net",
+                              ["--data-root", data, "--models-root", models, "--end-epoch",
+                               str(AUDIO_EPOCHS + 1), "--std-norm", "--stats-h5", stats],
+                              count_stft=True)
+    walls["train_audio_net"] = time.perf_counter() - t0
+    train_m, valid_m = sequence_metrics(out)
+    bces = [(t["bce"], v["bce"]) for t, v in zip(train_m, valid_m)]
+    check(len(bces) == AUDIO_EPOCHS and np.isfinite(bces).all(), f"VAD BCE {bces}")
+    check(bces[-1][0] < bces[0][0], f"the train BCE did not fall: {bces}")
+    pts = ckpt.checkpoints(run, "VAD_epoch_*.pt")
+    check(len(pts) == AUDIO_EPOCHS, f"{len(pts)} .pt files under {run}")
+    n_mix = {k: len(AUDIO_NOISES) * v for k, v in n_utts.items()}
+    per_epoch = -(-n_mix["train"] // VAD_BATCH) + -(-n_mix["validation"] // VAD_BATCH)
+    check(n_train == AUDIO_EPOCHS * per_epoch,
+          f"{n_train} stft_power launches in training, expected one per batch")
+    log(f"phase 14: train_audio_net LSTMVad(513, 1024, 2) --std-norm, batch {VAD_BATCH}, "
+        f"{n_mix['train']} + {n_mix['validation']} mixtures, {AUDIO_EPOCHS} epochs in "
+        f"{walls['train_audio_net']:.1f} s (a process of its own): (train, valid) BCE per epoch "
+        f"{bces}; valid F1 per epoch {[v['f1'] for v in valid_m]}; {n_train} stft_power "
+        f"launches (one per batch); {len(pts)} .pt under {os.path.basename(run)}")
+
+    # ---- 14d. predict_vad_labels over the test mixtures
+    preds = os.path.join(work, "preds")
+    argv = ["--data-root", data, "--models-root", models, "--model-dir", run, "--std-norm",
+            "--stats-h5", stats, "--snr", "all", "--output-dir", preds]
+    t0 = time.perf_counter()
+    out, n_pred = run_module("dvae_tpu_torch.cli.predict_vad_labels", argv, count_stft=True)
+    walls["predict_vad_labels"] = time.perf_counter() - t0
+    said = [x for x in out.splitlines() if x.startswith("vs oracle:")]
+    check(len(said) == 1 and f"done: {n_mix['test']} utterances" in out,
+          f"predict_vad_labels said {out[-600:]!r}")
+    check(n_pred == -(-n_mix["test"] // VAD_BATCH), f"{n_pred} stft_power launches")
+    pairs = ntcd_timit.proc_noisy_clean_pair_dict(proc + "/", "test", "subset", "vad_labels",
+                                                  True)
+    frames_ok = 0
+    for noisy_rel, clean_rel in pairs.items():
+        stem = os.path.join(preds, os.path.splitext(noisy_rel)[0])
+        hard, soft = np.load(stem + "_y_hat_hard.npy"), np.load(stem + "_y_hat_soft.npy")
+        n_oracle = read_labels(os.path.join(proc, clean_rel)).shape[1]
+        frames_ok += (len(hard) == len(soft) == n_oracle
+                      and np.array_equal(hard, (soft > 0.5).astype(np.float32)))
+    check(frames_ok == len(pairs) == n_mix["test"],
+          f"{frames_ok} of {len(pairs)} predictions with the oracle's frames")
+    n_again = predict_vad_labels.main(argv)
+    check(n_again == 0, f"a rerun predicted {n_again}")
+    log(f"phase 14: predict_vad_labels --snr all in {walls['predict_vad_labels']:.1f} s (a "
+        f"process of its own): {n_mix['test']} mixtures, a hard and a soft .npy each with the "
+        f"oracle's frame count, {n_pred} stft_power launches (one per batch of {VAD_BATCH}); "
+        f"{said[0]} (no limit); a rerun predicted 0")
+
+    # ---- 14e. evaluate_ntcd_m2 on phase 12's M2 VAD prior: classifier, oracle
+    mc = McemConfig()
+    batches = -(-n_mix["test"] // 16)
+    outputs = {}
+    for source in ("classifier", "oracle"):
+        out_dir = os.path.join(work, f"enh_{source}")
+        extra = ["--classifier-dir", preds] if source == "classifier" else []
+        mh_chain.launches = mh_chain.launches_mma = 0
+        t0 = time.perf_counter()
+        n_done = evaluate_ntcd_m2.main(["--data-root", data, "--checkpoint", m2_vad, "--snr",
+                                        "all", "--y-source", source, "--output-dir", out_dir,
+                                        *extra])
+        walls[f"evaluate_ntcd_m2 --y-source {source}"] = time.perf_counter() - t0
+        n_b1, n_mma = mh_chain.launches, mh_chain.launches_mma
+        check(n_done == n_mix["test"] and n_b1 == n_mma == batches * (mc.niter + 1),
+              f"{source}: {n_done} enhanced, {n_mma} bf16 launches of {n_b1}")
+        worst, finite = 0.0, True
+        for noisy_rel in pairs:
+            x = read_wav(os.path.join(proc, noisy_rel))[0]
+            base = os.path.join(out_dir, os.path.splitext(noisy_rel)[0])
+            s_hat = read_wav(base + "_s_est" + ("_y_hat_hard" if source == "classifier"
+                                                else "") + ".wav")[0]
+            n_hat = read_wav(base + "_n_est" + ("_y_hat_hard" if source == "classifier"
+                                                else "") + ".wav")[0]
+            finite &= bool(np.isfinite(s_hat).all() and np.isfinite(n_hat).all())
+            core = slice(1024, len(x) - 1024)  # the ISTFT's normalizer is full there
+            lim = 1e-4 * np.abs(x).max() + 1 / 32768
+            worst = max(worst, float(np.abs(s_hat + n_hat - x)[core].max() / lim))
+        check(finite and worst <= 1.0, f"{source}: finite {finite}, partition at {worst}")
+        outputs[source] = (n_b1, worst)
+        log(f"phase 14: evaluate_ntcd_m2 --y-source {source} over {n_done} mixtures in "
+            f"{walls[f'evaluate_ntcd_m2 --y-source {source}']:.2f} s: {n_mma} bf16-body "
+            f"mh_chain launches of {n_b1} (niter + 1 = {mc.niter + 1} per batch of 16, "
+            f"{batches} batches); outputs finite; Wiener partition max |s + n - x| at "
+            f"{worst:.3f} of its limit (1e-4 of the peak + 1 PCM16 step) {tag}")
+
+    # ---- 14f. the kernels at this path's launches, and the times
+    enh = Enhancer(CVAE(513, 1, 16, (128, 128)), EnhancerConfig(y_mode="enc_dec"))
+    enh.reload(torch.load(m2_vad, map_location="cpu", weights_only=True))
+    todo = sorted(pairs.items(), key=lambda t: (os.path.getsize(os.path.join(proc, t[0])), t[0]))
+    first = todo[:16]  # the sweep's first batch
+    s_wavs = [read_wav(os.path.join(proc, n))[0].astype(np.float32) for n, _ in first]
+    s_ys = [find_classifier_labels(preds, n.split("/")[-2], "sa1", 1,
+                                   rel_dir=os.path.dirname(n)) for n, _ in first]
+    seg = conditioned_segment(enh.mats, cond_batch_inputs(enh, s_wavs, s_ys), mc, cuda_ms, agree)
+    log(f"phase 14: mh_chain bf16 body, E-step segment at the sweep's first batch (M2 VAD, "
+        f"classifier labels folded into the row bias (rows, {seg['h1']})) rows={seg['rows']} "
+        f"steps={seg['steps']}: kernel {seg['k_ms']:.4f} ms, plain {seg['p_ms']:.4f} ms, bound "
+        f"{seg['b_ms']:.4f} ms by {seg['b_by']}; frozen segment kernel vs plain: max abs err "
+        f"{seg['max_abs']:.3e}, {seg['said']} {tag}")
+    chunk_xp = padded_batch([read_wav(p)[0] for p in sorted(
+        os.path.join(r, f) for r, _, fs in os.walk(os.path.join(proc, "ntcd_timit", "Clean",
+                                                                "train"))
+        for f in fs if f.endswith(".wav"))[:AUDIO_CHUNK]])[0].to(dev)
+    b2_builder = time_stft(chunk_xp, False, "audio builder chunk", n_build, cuda_ms, tag,
+                           phase=14)
+    stft_cfg = StftConfig(center=True)
+    test_ds = UtteranceDataset([(os.path.join(proc, n), os.path.join(proc, c))
+                                for n, c in todo[:VAD_BATCH]])
+    pred_xp = pad_signal(torch.from_numpy(pad_utterances(test_ds, range(len(test_ds)),
+                                                         stft_cfg)[0]).to(dev),
+                         stft_cfg).contiguous()
+    b2_pred = time_stft(pred_xp, True, "VAD train / predict batch", n_train + n_pred, cuda_ms,
+                        tag, phase=14)
+
+    # the LSTM at the reference width: a train step and a predict batch, after
+    # a warm-up that holds the first B2 launch and cuDNN's setup
+    with np.load(stats) as f:
+        norm = (f["X_train_mean"], f["X_train_std"])
+    vad = LSTMVad(513, 1024, 2, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    vstep = make_lstm_vad_step(vad, adam(vad.parameters(), 1e-4), norm=norm)
+    predict = make_lstm_vad_predict(vad, norm=norm)
+    train_ds = UtteranceDataset([(os.path.join(proc, n), os.path.join(proc, c)) for n, c in
+                                 ntcd_timit.proc_noisy_clean_pair_dict(
+                                     proc + "/", "train", "subset", "vad_labels", True).items()])
+    xb, yb, mb = batch_utterances(train_ds, range(VAD_BATCH), stft_cfg)
+    xt = batch_utterances(test_ds, range(len(test_ds)), stft_cfg)[0]
+
+    def host_ms(fn, reps):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    step_host = host_ms(lambda: vstep(xb, yb, mb), 20)
+    step_ev = cuda_ms(lambda: vstep(xb, yb, mb), reps=20, warm=2)
+    pred_host = host_ms(lambda: predict(xt).cpu(), 20)
+    pred_ev = cuda_ms(lambda: predict(xt), reps=20, warm=2)
+    batch_host = host_ms(lambda: batch_utterances(test_ds, range(len(test_ds)), stft_cfg), 10)
+    log(f"phase 14: LSTMVad(513, 1024, 2) train step at {tuple(xb.shape)}: {step_host:.4f} ms "
+        f"host clock, {step_ev:.4f} ms CUDA events; predict batch at {tuple(xt.shape)}: "
+        f"{pred_host:.4f} ms host clock (copy back included), {pred_ev:.4f} ms CUDA events; "
+        f"its batch_utterances (wav and label reads, one STFT power launch) "
+        f"{batch_host:.4f} ms host clock {tag}")
+    log(f"phase 14: walls {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}; "
+        f"{time.perf_counter() - t_phase:.1f} s in all {tag}")
+    return [chain_entry("mh_chain (M2 VAD sweeps on classifier / oracle labels)",
+                        sum(v[0] for v in outputs.values()), seg), b2_builder, b2_pred]
 
 
 def main() -> int:
@@ -2522,10 +2849,14 @@ def main() -> int:
                                        cuda_ms, plain_chain, agree, tag, wall, work)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
         serving_entries = serving_phase(model, wavs, cuda_ms, plain_chain, agree, tag, work)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
-        labelled_entries = labelled_training_phase(wavs, cleans, cuda_ms, agree, tag, work)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
-        cli_entries = cli_chain_phase(wavs, cleans, cuda_ms, agree, tag, work)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as keep:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+            labelled_entries, m2_vad = labelled_training_phase(wavs, cleans, cuda_ms, agree,
+                                                               tag, work, keep)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+            cli_entries = cli_chain_phase(wavs, cleans, cuda_ms, agree, tag, work)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+            audio_entries = audio_vad_phase(m2_vad, cuda_ms, agree, tag, work)
     peem_profile(enh.mats, (x2b, z0b, maskb), cfg.mcem, tag)
 
     def m1_chain_entry(name, fast, n):
@@ -2538,7 +2869,8 @@ def main() -> int:
     log(json.dumps({"kernels": [m1_chain_entry("mh_chain", True, launches_mma),
                                 m1_chain_entry("mh_chain_f32", False, launches_f32),
                                 *stft_entries, *cond_entries, *engine_entries,
-                                *serving_entries, *labelled_entries, *cli_entries]}))
+                                *serving_entries, *labelled_entries, *cli_entries,
+                                *audio_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -6,9 +6,10 @@ of the JAX package's ``scripts/_lib.py`` that these CLIs need).
 Checkpoints are ``.pt`` state_dicts in the reference's names: a
 reference checkpoint, one the port's trainers wrote, or a JAX ``.msgpack``
 converted once on a CPU host with ``scripts/export_torch_checkpoint.py``.
-HDF5 (label files, training statistics) is read with ``h5py``, imported
-where a file is opened: a machine without it runs every path that reads
-no HDF5.
+Label files, lip videos and training statistics are ``.h5`` files, read
+with ``h5py`` imported where a file is opened, or the ``.npz`` of the same
+arrays (``data/io.py``): a machine without ``h5py`` runs every path on
+``.npz`` files.
 """
 
 from __future__ import annotations
@@ -18,8 +19,7 @@ import os
 import pathlib
 import warnings
 
-import numpy as np
-
+from dvae_tpu_torch.data.io import load_arrays
 from dvae_tpu_torch.enhance.mcem import McemConfig
 from dvae_tpu_torch.enhance.pipeline import ENGINES
 from dvae_tpu_torch.models import CVAE, CVAE_v2, CVAE_v3, CVAE_v4, VAE, DisentangledVAE
@@ -47,6 +47,27 @@ def y_dim_for(labels: str) -> int:
 
 def processed_dir(args) -> str:
     return os.path.join(args.data_root, args.dataset_size, "processed")
+
+
+def raw_dir(args) -> str:
+    """The raw corpus tree the builders read."""
+    return os.path.join(args.data_root, args.dataset_size, "raw")
+
+
+def add_format(ap: argparse.ArgumentParser) -> None:
+    """The builders' file format."""
+    ap.add_argument("--format", choices=("h5", "npz"), default="h5",
+                    help="h5 = the JAX builder's files (needs h5py); npz = the same "
+                         "arrays, readable without h5py")
+
+
+def check_format(ap: argparse.ArgumentParser, args) -> None:
+    """``--format h5`` is a parse error on a machine without ``h5py``."""
+    if args.format == "h5":
+        try:
+            import h5py  # noqa: F401
+        except ImportError:
+            ap.error("--format h5 needs h5py, which this machine lacks; pass --format npz")
 
 
 def frame_h5_path(args) -> str:
@@ -213,18 +234,12 @@ def add_std_norm_eval(ap: argparse.ArgumentParser) -> None:
 
 
 def read_norm_stats(path):
-    """(X_train_mean, X_train_std) from a frame set: an ``.npz``, or an h5
-    file read with h5py on a CPU host."""
-    if str(path).endswith(".npz"):
-        with np.load(path) as f:
-            return f["X_train_mean"], f["X_train_std"]
+    """(X_train_mean, X_train_std) from a frame set or a statistics file:
+    an ``.npz``, or an h5 file read with h5py on a CPU host."""
     try:
-        import h5py
-    except ImportError:
-        raise SystemExit("--std-norm needs h5py, which this machine lacks: reading "
-                         "the HDF5 training statistics is a CPU-host path") from None
-    with h5py.File(path, "r") as f:
-        return f["X_train_mean"][:], f["X_train_std"][:]
+        return load_arrays(path, "X_train_mean", "X_train_std")
+    except RuntimeError as e:  # an .h5 on a machine without h5py
+        raise SystemExit(f"--std-norm: {e}") from None
 
 
 def norm_stats_if(args):

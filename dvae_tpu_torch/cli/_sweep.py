@@ -84,11 +84,11 @@ def build_enhancer(args, model_class: str, y_dim: int = 1, y_mode: str = "none",
 
 def add_label_source(ap: argparse.ArgumentParser, choices, help_extra: str = "") -> None:
     ap.add_argument("--y-source", default="oracle", choices=choices,
-                    help="labels of the conditional model: oracle = the label h5s "
-                         "(needs h5py), classifier = precomputed *_y_hat_hard.pt/.npy "
-                         "under --classifier-dir, ones/zeros = constant-label "
-                         "ablations (their frame count comes from the oracle h5, so "
-                         "they need h5py too)" + help_extra)
+                    help="labels of the conditional model: oracle = the label files "
+                         "(.h5 with h5py, or .npz), classifier = precomputed "
+                         "*_y_hat_hard.pt/.npy under --classifier-dir, ones/zeros = "
+                         "constant-label ablations (their frame count comes from the "
+                         "oracle label file)" + help_extra)
     ap.add_argument("--classifier-dir", default=None,
                     help="dir with *_y_hat_hard.pt/.npy for --y-source classifier")
 

@@ -18,14 +18,14 @@ from __future__ import annotations
 
 import argparse
 
-from dvae_tpu_torch.cli._family import add_common, processed_dir
+from dvae_tpu_torch.cli._family import (
+    add_common,
+    add_format,
+    check_format,
+    processed_dir,
+    raw_dir,
+)
 from dvae_tpu_torch.data.builders import build_frame_dataset
-
-
-def raw_dir(args) -> str:
-    import os
-
-    return os.path.join(args.data_root, args.dataset_size, "raw")
 
 
 def main(argv=None):
@@ -33,17 +33,11 @@ def main(argv=None):
         prog="python -m dvae_tpu_torch.cli.create_train_set", description=__doc__))
     ap.add_argument("--splits", nargs="+", default=["train", "validation"])
     ap.add_argument("--legacy-video-trim", action="store_true")
-    ap.add_argument("--format", choices=("h5", "npz"), default="h5",
-                    help="h5 = the JAX builder's file (needs h5py); npz = the same "
-                         "arrays, readable without h5py")
+    add_format(ap)
     ap.add_argument("--chunk-utterances", type=int, default=256,
                     help="utterances per spectrogram launch")
     args = ap.parse_args(argv)
-    if args.format == "h5":
-        try:
-            import h5py  # noqa: F401
-        except ImportError:
-            ap.error("--format h5 needs h5py, which this machine lacks; pass --format npz")
+    check_format(ap, args)
     out = build_frame_dataset(raw_dir(args), processed_dir(args), labels=args.labels,
                               dataset_types=tuple(args.splits),
                               proc_video_dir=processed_dir(args),

@@ -8,9 +8,10 @@ Walks ``<data-root>/<dataset-size>/processed/`` through the NTCD catalog,
 enhances the noisy test utterances in length-sorted batches on the card
 (``--platform cpu``: the plain PyTorch path on the CPU) and writes
 ``<output-dir>/<noisy rel path>_{s,n}_est.wav`` with resume-by-skip. The
-checkpoint is a ``.pt`` state_dict. ``--std-norm`` reads HDF5 statistics,
-and the catalog's video-trim h5s (when present) are read too, with
-``h5py``: a CPU-host path."""
+checkpoint is a ``.pt`` state_dict. The label files the catalog walks,
+the lip videos that trim (when present) and ``--norm-h5``'s statistics
+are ``.h5`` (read with ``h5py``, a CPU-host path) or the ``.npz`` of the
+same arrays (read anywhere, the card's route)."""
 
 from __future__ import annotations
 

@@ -5,10 +5,11 @@ VAE (port of the JAX package's ``scripts/evaluate_ntcd_M2.py``).
         --labels vad_labels --model-dir models/ntcd_M2_... --snr all
 
 ``--model-variant v1`` is ``CVAE`` (the encoder sees [x; y]), ``v2`` is
-``CVAE_v2`` (the encoder sees x only). Labels: the oracle label h5s, a
-classifier's precomputed ``*_y_hat_hard.pt/.npy``, or the constant
-ablations. Outputs and device as in ``evaluate_ntcd_m1``; the oracle and
-constant sources read the label h5s with ``h5py``, a CPU-host path."""
+``CVAE_v2`` (the encoder sees x only). Labels: the oracle label files, a
+classifier's precomputed ``*_y_hat_hard.pt/.npy`` (``predict_vad_labels``
+writes them), or the constant ablations. Outputs and device as in
+``evaluate_ntcd_m1``; the oracle and constant sources read the label
+files, ``.h5`` with ``h5py`` or ``.npz`` without it (the card's route)."""
 
 from __future__ import annotations
 

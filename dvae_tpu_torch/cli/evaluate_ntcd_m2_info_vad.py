@@ -7,13 +7,13 @@ conditioned on voice activity (port of the JAX package's
 
 ``--model-class v5`` is ``DisentangledVAE``, ``v4`` ``CVAE_v4``, ``v3``
 ``CVAE_v3``: all enhance with the encoder on x and the decoder on [z; y].
-Labels: the oracle label h5s, a classifier's precomputed
+Labels: the oracle label files, a classifier's precomputed
 ``*_y_hat_hard.pt/.npy``, the constant ablations, or ``self-soft``, the
 model's own x -> y classifier on each clean utterance's power spectrogram
 (one STFT power kernel launch per utterance). ``--save-labels`` also writes
 the labels as ``<utt><suffix>.npy`` beside the enhanced wavs. Outputs and
 device as in ``evaluate_ntcd_m1``; the oracle and constant sources read
-the label h5s with ``h5py``, a CPU-host path."""
+the label files, ``.h5`` with ``h5py`` or ``.npz`` without it."""
 
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Frame-set builder core (port of the per-utterance part of
-``dvae_tpu.data.builders.build_frame_dataset``).
+"""Dataset builders (port of ``dvae_tpu.data.builders``): the reference's
+create_* pipeline, host I/O around spectrograms taken on the device.
 
 :func:`build_frames` turns clean utterances into the linear-power frame
 rows the VAE trainers consume, with the train statistics beside them and,
@@ -15,27 +15,47 @@ shared zeros. The labels take each utterance's own frames the same way.
 consolidated frame set ``ntcd_timit/Clean_<labels>_upsampled.{h5,npz}``
 from chunks of utterances, one launch each; :func:`frames_h5_to_npz` copies
 an ``.h5`` frame set to the ``.npz`` that a machine without ``h5py`` reads.
+:func:`build_audio_train_set` copies the clean and noisy wavs into the
+processed layout and writes each clean utterance's label file and the
+noisy train mixtures' log-power statistics, again a chunk of utterances
+per launch. :func:`copy_ntcd_noisy_test` and :func:`build_qut_test_set`
+are host-only (copies; QUT-noise mixtures).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import os
 import pathlib
+import pickle
+import shutil
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from dvae_tpu_torch.data.catalog import ntcd_timit
-from dvae_tpu_torch.data.io import read_wav
+from dvae_tpu_torch.data.catalog import ntcd_timit, qut
+from dvae_tpu_torch.data.io import (
+    need_h5py,
+    read_wav,
+    save_arrays,
+    video_frames,
+    write_labels,
+    write_wav,
+)
 from dvae_tpu_torch.device import resolve_device
 from dvae_tpu_torch.ops.stft import StftConfig, frame_signal, pad_signal
-from dvae_tpu_torch.ops.stft_power import power_spectrogram
+from dvae_tpu_torch.ops.stft_power import log_power_spectrogram, power_spectrogram
 from dvae_tpu_torch.ops.targets import ibm_from_db, vad_from_energy
 
 DEFAULT_STFT = StftConfig(center=False)  # builder parametrization
+# the frames of a waveform padded as DEFAULT_STFT pads it alone
+_FRAMING = dataclasses.replace(DEFAULT_STFT, center=False, pad_at_end=False)
+FS = 16000
 LABELS = ("vad_labels", "ibm_labels")
+FORMATS = ("h5", "npz")
+NOISY_STATS = "ntcd_timit/Noisy/ntcd_timit_log_power_spec_upsampled_statistics"
 
 
 def _empirical_std(sq_sum, mean, n):
@@ -128,21 +148,6 @@ def build_frames(wavs, cfg: StftConfig = DEFAULT_STFT, max_frames=None,
                   std[:, None].astype(np.float32), y)
 
 
-def _video_frames(video_path: pathlib.Path, legacy_video_trim: bool):
-    """Frames of the utterance's processed lip video, or None without one.
-    ``legacy_video_trim`` takes ``shape[0]`` of the stored (67, 67, frames)
-    video, the image height, as the reference builder does
-    (create_train_set.py:181-186). Reading the h5 needs ``h5py``: where it
-    is missing, an existing video is an error, never a skipped trim."""
-    if not video_path.exists():
-        return None
-    import h5py
-
-    with h5py.File(video_path, "r") as vf:
-        vshape = vf["X"].shape
-    return vshape[0] if legacy_video_trim else vshape[-1]
-
-
 def _split_frames(input_dir: str, proc_video_dir: str, split: str, labels: str,
                   legacy_video_trim: bool, chunk: int, dev):
     """Yield (x (n, F), y (n, Yd)) float32 frame blocks of one split in the
@@ -154,8 +159,8 @@ def _split_frames(input_dir: str, proc_video_dir: str, split: str, labels: str,
         for in_rel, mat_rel in zip(clean_in[s:s + chunk], mats[s:s + chunk]):
             wavs.append(read_wav(os.path.join(input_dir, in_rel))[0])
             video = pathlib.Path(proc_video_dir) / pathlib.Path(mat_rel).with_suffix("")
-            n_video = _video_frames(video.parent / (video.name + "_upsampled.h5"),
-                                    legacy_video_trim)
+            n_video = video_frames(video.parent / (video.name + "_upsampled.h5"),
+                                   legacy_video_trim)
             limits.append(np.iinfo(np.int64).max if n_video is None else n_video)
         fr = build_frames(wavs, max_frames=limits, device=dev, labels=labels)
         yield fr.x, fr.y
@@ -173,16 +178,15 @@ def build_frame_dataset(input_dir, output_dir, labels: str = "vad_labels",
     takes each clean utterance's power frames and labels through
     :func:`build_frames` on ``device`` (CUDA unless ``device="cpu"``),
     ``chunk`` utterances per launch, and trims each utterance to its lip
-    video's frames where ``<proc_video_dir>/...<utt>_upsampled.h5`` exists
-    (default ``output_dir``; see :func:`_video_frames` for
+    video's frames where ``<proc_video_dir>/...<utt>_upsampled.{h5,npz}``
+    exists (default ``output_dir``; see ``data.io.video_frames`` for
     ``legacy_video_trim``). It writes ``X_<split>`` (513, N), ``Y_<split>``
     (Yd, N) and, from the train split, ``X_train_mean`` / ``X_train_std``
     (513, 1), all float32, the statistics from float64 sums over every
     chunk. ``fmt="h5"`` writes the JAX builder's layout (lzf, chunks (F,
     1)) with ``h5py``; ``fmt="npz"`` the same arrays under the same names,
     without it."""
-    if fmt not in ("h5", "npz"):
-        raise ValueError(f"fmt must be h5 or npz, got {fmt!r}")
+    _check_format(fmt)
     input_dir, output_dir = str(input_dir), str(output_dir)
     proc_video_dir = str(proc_video_dir) if proc_video_dir else output_dir
     dev = resolve_device(device)
@@ -192,9 +196,7 @@ def build_frame_dataset(input_dir, output_dir, labels: str = "vad_labels",
     arrays = {}  # the .npz route's splits, (F, N) / (Yd, N)
     h5 = None
     if fmt == "h5":
-        import h5py
-
-        h5 = h5py.File(out_path, "w")
+        h5 = need_h5py(out_path).File(out_path, "w")
     try:
         for split in dataset_types:
             if h5 is not None:
@@ -238,25 +240,216 @@ def build_frame_dataset(input_dir, output_dir, labels: str = "vad_labels",
         if h5 is not None:
             h5.close()
     if h5 is None:
-        _save_npz(out_path, arrays)
+        save_arrays(out_path, arrays)
     return out_path
 
 
-def _save_npz(path: pathlib.Path, arrays: dict) -> None:
-    tmp = path.with_name(path.name + ".tmp.npz")
-    np.savez(tmp, **{k: np.ascontiguousarray(v) for k, v in arrays.items()})
-    tmp.replace(path)
+def _check_format(fmt: str) -> None:
+    if fmt not in FORMATS:
+        raise ValueError(f"fmt must be one of {FORMATS}, got {fmt!r}")
 
 
 def frames_h5_to_npz(h5_path, npz_path=None) -> pathlib.Path:
     """Copy every array of a consolidated frame-set ``.h5`` unchanged into
     one ``.npz`` (default: beside it, same stem): the route from a corpus
     built on a CPU host to a machine without ``h5py``. Returns its path."""
-    import h5py
-
     h5_path = pathlib.Path(h5_path)
     npz_path = h5_path.with_suffix(".npz") if npz_path is None else pathlib.Path(npz_path)
-    with h5py.File(h5_path, "r") as f:
+    with need_h5py(h5_path).File(h5_path, "r") as f:
         arrays = {k: f[k][()] for k in f.keys()}
-    _save_npz(npz_path, arrays)
+    save_arrays(npz_path, arrays)
     return npz_path
+
+
+
+def _copy_files(pairs, input_dir: str, output_dir: str, workers=None) -> list[pathlib.Path]:
+    """Copy each ``(src_rel, dst_rel)`` from ``input_dir`` to ``output_dir``
+    over a thread pool; returns the destinations in order."""
+    def copy(pair):
+        dst = pathlib.Path(output_dir) / pair[1]
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(os.path.join(input_dir, pair[0]), dst)
+        return dst
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(copy, pairs))
+
+
+def _noisy_log_power_sums(wav_paths, clean_rels, output_dir: str, eps: float, chunk: int,
+                          dev):
+    """(n, sum, sum of squares) in float64 over the log-power frames of the
+    noisy train mixtures ``wav_paths``, ``chunk`` per launch of the log
+    epilogue, each mixture trimmed to the frames of its clean utterance's
+    lip video (``clean_rels``) under ``output_dir``. A missing video raises,
+    as in the reference: the train split has no untrimmed fallback."""
+    n_sum, s_sum, sq_sum = 0, np.zeros(513), np.zeros(513)
+    for s in range(0, len(wav_paths), chunk):
+        wavs, limits = [], []
+        for path, clean_rel in zip(wav_paths[s:s + chunk], clean_rels[s:s + chunk]):
+            x, fs = read_wav(path)
+            if fs != FS:  # reference create_audio_train_set.py:233
+                raise ValueError(f"Unexpected sampling rate {fs} in {path}")
+            video = pathlib.Path(output_dir) / pathlib.Path(
+                clean_rel.replace("Clean", "matlab_raw")).with_suffix("")
+            video = video.parent / (video.name + "_upsampled.h5")
+            n_video = video_frames(video)
+            if n_video is None:
+                raise FileNotFoundError(f"no lip video {video} (or its .npz): the noisy train "
+                                        "statistics trim each mixture to its video's frames")
+            wavs.append(x)
+            limits.append(n_video)
+        batch, frames = padded_batch(wavs, DEFAULT_STFT)
+        logp = log_power_spectrogram(batch.to(dev), _FRAMING, eps)
+        counts = torch.tensor([min(n, m) for n, m in zip(frames, limits)])
+        keep = torch.arange(logp.shape[1])[None, :] < counts[:, None]
+        x64 = logp[keep.to(dev)].double()
+        n_sum += x64.shape[0]
+        s_sum += x64.sum(0).cpu().numpy()
+        sq_sum += (x64 * x64).sum(0).cpu().numpy()
+    return n_sum, s_sum, sq_sum
+
+
+def build_audio_train_set(input_dir, output_dir, dataset_types=("train", "validation", "test"),
+                          labels: str = "vad_labels", dataset_size: str = "complete",
+                          upsampled: bool = True, workers=None, eps: float = 1e-8,
+                          fmt: str = "h5", chunk: int = 256, device=None):
+    """The audio training set (port of
+    ``dvae_tpu.data.builders.build_audio_train_set``,
+    create_audio_train_set.py). For each split of ``input_dir`` (the raw
+    tree):
+
+    * each clean wav is copied to the processed layout under ``output_dir``
+      and gets a label file ``<utt>_<labels>_upsampled.<fmt>`` (``Y``,
+      (y_dim, frames) float32) over all of its frames, untrimmed, from
+      :func:`build_frames` on ``device`` (CUDA unless ``device="cpu"``),
+      ``chunk`` utterances per launch;
+    * each noisy wav of the pair grid (``noisy_clean_pair_dict``) is copied
+      to its place on the copy grid (``noisy_speech_dict``); a pair outside
+      the copy grid (the 15 dB wavs) or without its source wav is skipped;
+    * from the train split's copies, the mixtures' log power
+      ``log(|STFT|^2 + eps)`` (the builder's eps, through the kernel's log
+      epilogue), each trimmed to its clean utterance's lip-video frames,
+      gives ``X_train_mean`` / ``X_train_std`` (513, 1) float32 from float64
+      sums (the JAX builder sums in float32), written to
+      ``ntcd_timit/Noisy/ntcd_timit_log_power_spec_upsampled_statistics.<fmt>``.
+
+    A sample rate other than 16 kHz and a missing video in the train split
+    raise. ``fmt="h5"`` writes the JAX builder's files with ``h5py``,
+    ``fmt="npz"`` the same arrays without it. Copies fan out over ``workers``
+    threads. Returns the statistics file's path, or None when no train
+    mixture was copied."""
+    _check_format(fmt)
+    input_dir, output_dir = str(input_dir), str(output_dir)
+    if fmt == "h5":
+        need_h5py(output_dir)
+    dev = resolve_device(device)
+    suffix = f"_{labels}_upsampled.{fmt}" if upsampled else f"_{labels}.{fmt}"
+    stats = None
+    for split in dataset_types:
+        clean_in, clean_out = ntcd_timit.speech_list(input_dir + "/", split)
+        dsts = _copy_files(list(zip(clean_in, clean_out)), input_dir, output_dir, workers)
+        for s in range(0, len(dsts), chunk):
+            part = dsts[s:s + chunk]
+            fr = build_frames([read_wav(p)[0] for p in part], device=dev, labels=labels)
+            for dst, y in zip(part, np.split(fr.y, np.cumsum(fr.counts)[:-1])):
+                base = dst.with_suffix("")
+                write_labels(base.parent / (base.name + suffix), y.T)
+
+        out_map = ntcd_timit.noisy_speech_dict(input_dir + "/", split, dataset_size)
+        pairs = [(noisy, clean) for noisy, clean in ntcd_timit.noisy_clean_pair_dict(
+            input_dir + "/", split, dataset_size).items()
+            if noisy in out_map and os.path.exists(os.path.join(input_dir, noisy))]
+        dsts = _copy_files([(noisy, out_map[noisy]) for noisy, _ in pairs], input_dir,
+                           output_dir, workers)
+        if split != "train" or not dsts:
+            continue
+        n, s_sum, sq_sum = _noisy_log_power_sums(dsts, [c for _, c in pairs], output_dir, eps,
+                                                 chunk, dev)
+        if n:
+            mean = s_sum / n
+            stats = pathlib.Path(output_dir) / f"{NOISY_STATS}.{fmt}"
+            stats.parent.mkdir(parents=True, exist_ok=True)
+            save_arrays(stats, {"X_train_mean": mean[:, None].astype(np.float32),
+                                "X_train_std": _empirical_std(sq_sum, mean, n)[:, None].astype(
+                                    np.float32)})
+    return stats
+
+
+def copy_ntcd_noisy_test(input_dir, output_dir, dataset_type: str = "test",
+                         dataset_size: str = "complete") -> int:
+    """Copy the pre-mixed Noisy_TCDTIMIT wavs of a split into the processed
+    layout (port of ``dvae_tpu.data.builders.copy_ntcd_noisy_test``,
+    create_audio_set_ntcd_noise.py:111-133); a missing source is skipped.
+    Returns the number copied."""
+    input_dir, output_dir = str(input_dir), str(output_dir)
+    pairs = ntcd_timit.noisy_speech_dict(input_dir + "/", dataset_type, dataset_size)
+    todo = [(src, dst) for src, dst in pairs.items()
+            if os.path.exists(os.path.join(input_dir, src))]
+    return len(_copy_files(todo, input_dir, output_dir))
+
+
+def build_qut_test_set(input_speech_dir, noise_dir, output_dir, dataset_type: str = "test",
+                       snrs=(-15.0, -10.0, -5.0, 0.0, 5.0), seed: int = 0, workers=None):
+    """QUT-noise mixtures at a random noise type and SNR per utterance (port
+    of ``dvae_tpu.data.builders.build_qut_test_set``, create_test_set.py:
+    80-199): the power-ratio noise gain, the joint renormalization, the
+    ``_s/_n/_x.wav`` triplets and the pickled SNR list. Draws as the
+    reference does: numpy's global RNG seeded with ``seed`` picks every
+    noise type and SNR, and ``default_rng(seed + i)`` crops utterance i's
+    noise. A sample rate other than 16 kHz, no preprocessed noise, and a
+    drawn noise type that is absent raise. Returns the SNRs drawn."""
+    input_speech_dir, output_dir = str(input_speech_dir), str(output_dir)
+    clean_in, clean_out = ntcd_timit.speech_list(input_speech_dir + "/", dataset_type)
+
+    noise_paths = qut.noise_list_preprocessed(str(noise_dir) + "/", dataset_type)
+    noise_audios = {}
+    for k, p in noise_paths.items():
+        if os.path.exists(p):
+            audio, fs_noise = read_wav(p)
+            if fs_noise != FS:  # reference create_test_set.py:159-160
+                raise ValueError(
+                    f"Unexpected sampling rate {fs_noise} in {p} (want {FS}); "
+                    "preprocess the noise first (qut.preprocess_noise)")
+            noise_audios[k] = audio
+    if not noise_audios:
+        raise FileNotFoundError(f"no preprocessed QUT noise under {noise_dir}")
+
+    np.random.seed(seed)  # reference seeding (create_test_set.py:137)
+    noise_types = ["cafe", "home", "street", "car"]
+    noise_index = np.random.randint(len(noise_types), size=len(clean_in))
+    snrs = list(snrs)
+    snrs_index = np.random.randint(len(snrs), size=len(clean_in))
+    all_snr_db = [snrs[i] for i in snrs_index]
+
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, dataset_type + "_snr_db.p"), "wb") as f:
+        pickle.dump(all_snr_db, f, protocol=4)
+
+    def process(i):
+        speech, fs = read_wav(os.path.join(input_speech_dir, clean_in[i]))
+        if fs != FS:  # reference create_test_set.py:98-99
+            raise ValueError(f"Unexpected sampling rate {fs} in {clean_in[i]}")
+        peak = np.max(np.abs(speech))
+        if peak > 0:  # a digitally silent wav must not become all-NaN
+            speech = speech / peak
+        ntype = noise_types[noise_index[i] % len(noise_types)]
+        if ntype not in noise_audios:
+            raise KeyError(
+                f"drawn noise type {ntype!r} not in the preprocessed noise dir "
+                f"(available: {sorted(noise_audios)}); a silent substitution "
+                f"would skew the test set's noise-type distribution")
+        noise = qut.noise_segment(noise_audios, ntype, speech,
+                                  rng=np.random.default_rng(seed + i))
+        snr_db = all_snr_db[i]
+        k = (np.sum(speech**2) * 10 ** (-snr_db / 10)) / np.sum(noise**2)
+        noise = noise * np.sqrt(k)
+        norm = np.max(np.abs(np.concatenate([speech, noise, speech + noise])))
+        out_base = pathlib.Path(output_dir) / pathlib.Path(clean_out[i]).with_suffix("")
+        out_base.parent.mkdir(parents=True, exist_ok=True)
+        write_wav(str(out_base) + "_s.wav", speech / norm, fs)
+        write_wav(str(out_base) + "_n.wav", noise / norm, fs)
+        write_wav(str(out_base) + "_x.wav", (speech + noise) / norm, fs)
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+        list(ex.map(process, range(len(clean_in))))
+    return all_snr_db

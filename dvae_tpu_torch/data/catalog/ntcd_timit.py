@@ -15,6 +15,9 @@
   narrows to ['Babble','LR'] x ['-5'] (:354-359).
 
 All returned paths are relative to the given input dir, like the reference.
+A per-utterance label file is the JAX builder's ``.h5`` or the ``.npz`` of
+the same array (``data/io.py``); the label walks take either, one entry per
+utterance, the ``.h5`` where both exist.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from __future__ import annotations
 import os
 import pathlib
 from glob import glob
+
+from dvae_tpu_torch.data.io import ARRAY_SUFFIXES
 
 NOISE_TYPES = ["Babble", "Cafe", "Car", "LR", "Street", "White"]
 SNRS = ["-5", "0", "5", "10", "15"]
@@ -149,13 +154,25 @@ def noisy_clean_pair_dict(input_speech_dir, dataset_type="train", dataset_size="
     return pairs
 
 
+def _label_files(clean_dir: str, suffix: str) -> list[str]:
+    """The label files ``*<suffix>.h5`` / ``*<suffix>.npz`` under
+    ``clean_dir``, one per utterance (the ``.h5`` where both exist), sorted
+    by their paths without the extension: for a tree of ``.h5`` files alone,
+    the JAX catalog's sorted glob."""
+    found = {}
+    for ext in reversed(ARRAY_SUFFIXES):  # the .h5 last, so that it wins
+        for p in glob(os.path.join(clean_dir, f"**/*{suffix}{ext}"), recursive=True):
+            found[p[:-len(ext)]] = p
+    return [found[k] for k in sorted(found)]
+
+
 def proc_noisy_clean_pair_dict(input_speech_dir, dataset_type="train",
                                dataset_size="complete", labels="vad_labels",
                                upsampled=False):
-    """{processed noisy wav -> clean label h5} (ntcd_timit.py:386-474)."""
+    """{processed noisy wav -> clean label file} (ntcd_timit.py:386-474)."""
     clean_dir = os.path.join(input_speech_dir, "ntcd_timit/Clean", _split(dataset_type))
-    suffix = f"{labels}_upsampled.h5" if upsampled else f"{labels}.h5"
-    clean_files = sorted(glob(os.path.join(clean_dir, f"**/*{suffix}"), recursive=True))
+    suffix = f"{labels}_upsampled" if upsampled else labels
+    clean_files = _label_files(clean_dir, suffix)
     shortpaths = []
     for c in clean_files:
         p = pathlib.Path(c)
@@ -175,16 +192,20 @@ def proc_noisy_clean_pair_dict(input_speech_dir, dataset_type="train",
 
 
 def video_h5_rel(label_rel: str, labels: str = "vad_labels") -> str:
-    """Clean/<split>/<spk>/<utt>_<labels>_upsampled.h5 -> its matlab_raw/
-    lip-video h5 — the reference's Clean<->matlab_raw path substitution
-    (data_handling.py:299-304). One home for the rewrite; the reverse is
-    :func:`label_h5_rel`."""
+    """Clean/<split>/<spk>/<utt>_<labels>_upsampled.{h5,npz} -> its
+    matlab_raw/ lip video of the same suffix, the reference's
+    Clean<->matlab_raw path substitution (data_handling.py:299-304). One
+    home for the rewrite; the reverse is :func:`label_h5_rel`."""
     rel = label_rel.replace("/Clean/", "/matlab_raw/")
-    return rel.replace(f"_{labels}_upsampled.h5", "_upsampled.h5")
+    for ext in ARRAY_SUFFIXES:
+        rel = rel.replace(f"_{labels}_upsampled{ext}", f"_upsampled{ext}")
+    return rel
 
 
 def label_h5_rel(video_rel: str, labels: str = "vad_labels") -> str:
-    """matlab_raw/<split>/<spk>/<utt>_upsampled.h5 -> its Clean/ label h5
-    (the inverse of :func:`video_h5_rel`)."""
+    """matlab_raw/<split>/<spk>/<utt>_upsampled.{h5,npz} -> its Clean/ label
+    file of the same suffix (the inverse of :func:`video_h5_rel`)."""
     rel = video_rel.replace("/matlab_raw/", "/Clean/")
-    return rel.replace("_upsampled.h5", f"_{labels}_upsampled.h5")
+    for ext in ARRAY_SUFFIXES:
+        rel = rel.replace(f"_upsampled{ext}", f"_{labels}_upsampled{ext}")
+    return rel

@@ -6,8 +6,9 @@
   arrays. ``.npz`` needs no ``h5py``: the route on a machine without it.
   An ``.h5`` can also be streamed (``in_memory=False``).
 * :class:`UtteranceDataset`: whole peak-normalized waveforms with their
-  per-utterance label h5s, for the sequence trainers. Any sequence of
-  ``(wav, labels)`` pairs serves the same role in memory.
+  per-utterance label files (``.h5`` or ``.npz``), for the sequence
+  trainers. Any sequence of ``(wav, labels)`` pairs serves the same role in
+  memory.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import pathlib
 
 import numpy as np
 
-from dvae_tpu_torch.data.io import read_wav
+from dvae_tpu_torch.data.io import read_labels, read_wav
 
 
 def index_batches(n: int, batch_size: int, rng: np.random.Generator | None = None,
@@ -141,9 +142,10 @@ class FrameDataset:
 class UtteranceDataset:
     """Whole utterances: (waveform, per-frame labels) pairs.
 
-    ``pairs`` is a list of (wav_path, label_h5_path | None); audio is
+    ``pairs`` is a list of (wav_path, label_path | None); audio is
     peak-normalized like the reference loader (data_handling.py:123). The
-    label h5 holds ``Y`` as (y_dim, frames) and is read with ``h5py``.
+    label file holds ``Y`` as (y_dim, frames): an ``.h5`` (read with
+    ``h5py``) or an ``.npz`` (``data.io.read_labels``).
     """
 
     def __init__(self, pairs, fs: int = 16000, peak_normalize: bool = True):
@@ -165,9 +167,5 @@ class UtteranceDataset:
                 x = x / peak
         y = None
         if label_path is not None:
-            import h5py
-
-            with h5py.File(label_path, "r") as f:
-                y = f["Y"][:]  # (y_dim, n_frames) on disk
-            y = np.ascontiguousarray(y.T)  # (n_frames, y_dim)
+            y = np.ascontiguousarray(read_labels(label_path).T)  # (n_frames, y_dim)
         return x.astype(np.float32), y

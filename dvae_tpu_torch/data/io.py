@@ -1,12 +1,26 @@
-"""Host-side wav I/O (port of ``dvae_tpu.data.io``, scipy only).
+"""Host-side file I/O: wavs (port of ``dvae_tpu.data.io``, scipy only) and
+the builders' per-utterance and statistics arrays.
 
-Reads return float64 in [-1, 1) (PCM scaled by 1/2**(bits-1)); writes store
-16-bit PCM from float input (libsndfile-style scale by 32768 and clip).
+Wav reads return float64 in [-1, 1) (PCM scaled by 1/2**(bits-1)); writes
+store 16-bit PCM from float input (libsndfile-style scale by 32768 and
+clip).
+
+Arrays go to a file by its suffix: ``.h5`` is the JAX builders' HDF5 file
+(one dataset per name, written and read with ``h5py``, imported where a file
+is opened); ``.npz`` holds the same arrays under the same names and needs
+no ``h5py``, the route on a machine without it. Opening an ``.h5`` there is
+an error that names the ``.npz`` route, never a skipped file. Three kinds
+of file use it: label files (``Y``, (y_dim, frames) float32), statistics
+files (``X_train_mean`` / ``X_train_std``, (F, 1) float32) and processed lip
+videos (``X``, (H, W, frames)), whose frame count :func:`video_frames`
+reads.
 """
 
 from __future__ import annotations
 
+import os
 import struct
+import zipfile
 from math import gcd
 
 import numpy as np
@@ -67,3 +81,88 @@ def pcm16(data: np.ndarray) -> np.ndarray:
 def write_wav(path, data: np.ndarray, fs: int) -> None:
     """Write float samples as 16-bit PCM (quantized by :func:`pcm16`)."""
     wavfile.write(path, fs, pcm16(data))
+
+
+ARRAY_SUFFIXES = (".h5", ".npz")  # the JAX builders' file first
+
+
+def need_h5py(path):
+    """``h5py``, for the HDF5 file ``path``; where it is missing, an error
+    that names the ``.npz`` route."""
+    try:
+        import h5py
+    except ImportError:
+        raise RuntimeError(
+            f"{path}: an HDF5 file needs h5py, which this machine lacks; use the .npz "
+            "of the same arrays (the builders' fmt='npz', the CLIs' --format npz)") from None
+    return h5py
+
+
+def _suffix(path) -> str:
+    ext = os.path.splitext(str(path))[1]
+    if ext not in ARRAY_SUFFIXES:
+        raise ValueError(f"{path}: expected one of {ARRAY_SUFFIXES}")
+    return ext
+
+
+def save_arrays(path, arrays: dict) -> None:
+    """Write ``arrays`` (name -> array) to ``path``: datasets of an ``.h5``
+    (``h5py``), or an ``.npz`` written to a temporary name and renamed, so
+    that a killed write leaves no truncated file."""
+    if _suffix(path) == ".h5":
+        with need_h5py(path).File(path, "w") as f:
+            for k, v in arrays.items():
+                f.create_dataset(k, data=v)
+        return
+    path = str(path)
+    tmp = path[:-len(".npz")] + ".tmp.npz"
+    np.savez(tmp, **{k: np.ascontiguousarray(v) for k, v in arrays.items()})
+    os.replace(tmp, path)
+
+
+def load_arrays(path, *names) -> tuple:
+    """The arrays ``names`` of an ``.h5`` or ``.npz`` file."""
+    if _suffix(path) == ".h5":
+        with need_h5py(path).File(path, "r") as f:
+            return tuple(f[k][()] for k in names)
+    with np.load(path) as f:
+        return tuple(f[k] for k in names)
+
+
+def write_labels(path, y: np.ndarray) -> None:
+    """A per-utterance label file: ``Y``, (y_dim, frames) float32."""
+    save_arrays(path, {"Y": np.asarray(y, np.float32)})
+
+
+def read_labels(path) -> np.ndarray:
+    """``Y`` of a label file, (y_dim, frames) float32, as stored."""
+    return np.asarray(load_arrays(path, "Y")[0], np.float32)
+
+
+def _npz_shape(path, name: str) -> tuple:
+    """The shape of ``name`` in an ``.npz`` from its header, without reading
+    the array."""
+    with zipfile.ZipFile(path) as z, z.open(name + ".npy") as fh:
+        major, _ = np.lib.format.read_magic(fh)
+        read = (np.lib.format.read_array_header_1_0 if major == 1
+                else np.lib.format.read_array_header_2_0)
+        return read(fh)[0]
+
+
+def video_frames(path, legacy: bool = False):
+    """Frames of the processed lip video ``<utt>_upsampled.h5`` or
+    ``<utt>_upsampled.npz`` (``X``, (H, W, frames)) that ``path`` names with
+    either suffix: the ``.h5`` where it exists, else the ``.npz``; None
+    where neither does. ``legacy`` takes ``shape[0]``, the image height, as
+    the reference's frame-set builder does (create_train_set.py:181-186)."""
+    base = os.path.splitext(str(path))[0]
+    for ext in ARRAY_SUFFIXES:
+        p = base + ext
+        if os.path.exists(p):
+            if ext == ".h5":
+                with need_h5py(p).File(p, "r") as f:
+                    shape = f["X"].shape
+            else:
+                shape = _npz_shape(p, "X")
+            return int(shape[0] if legacy else shape[-1])
+    return None

@@ -4,9 +4,10 @@ of ``dvae_tpu.enhance.evaluate``).
 Utterances are grouped into batches, each batch runs through the
 ``Enhancer``, and outputs are written in the reference's layout
 (``<output_dir>/<relative noisy path>_s_est.wav`` / ``_n_est.wav``), with
-the reference's idempotent resume-by-skip. HDF5 files (oracle labels,
-video frame counts) are read with ``h5py``, imported only where a file is
-opened: a machine without it can sweep any tree that needs no such read.
+the reference's idempotent resume-by-skip. Oracle labels and lip videos
+(for the frame counts) are ``.h5`` files, read with ``h5py``, or the
+``.npz`` of the same arrays, read without it (``data/io.py``): a machine
+without ``h5py`` sweeps a tree of ``.npz`` files.
 """
 
 from __future__ import annotations
@@ -18,17 +19,13 @@ import pathlib
 import numpy as np
 
 from dvae_tpu_torch.data.catalog import ntcd_timit
-from dvae_tpu_torch.data.io import read_wav, write_wav
+from dvae_tpu_torch.data.io import read_labels, read_wav, video_frames, write_wav
 
 
-def load_oracle_labels(label_h5_path) -> np.ndarray:
-    """(n_frames, y_dim) oracle labels from a builder h5 (its ``Y`` is
-    (y_dim, n_frames))."""
-    import h5py
-
-    with h5py.File(label_h5_path, "r") as f:
-        y = f["Y"][:]
-    return np.ascontiguousarray(y.T, dtype=np.float32)
+def load_oracle_labels(label_path) -> np.ndarray:
+    """(n_frames, y_dim) oracle labels from a builder's label file, ``.h5``
+    or ``.npz`` (its ``Y`` is (y_dim, n_frames))."""
+    return np.ascontiguousarray(read_labels(label_path).T)
 
 
 def classifier_label_candidates(classifier_dir, speaker, utt,
@@ -107,19 +104,11 @@ def clean_audio_rel(clean_rel: str, labels: str) -> str:
 
 def video_frame_counts(processed_dir, clean_rel_paths, labels: str):
     """Per-utterance video frame counts (the reference trims the
-    spectrogram to the video length); None where no video h5 exists."""
-    counts = []
-    for rel in clean_rel_paths:
-        h5_rel = rel.replace("Clean", "matlab_raw").replace("_" + labels, "")
-        path = os.path.join(processed_dir, h5_rel)
-        if os.path.exists(path):
-            import h5py
-
-            with h5py.File(path, "r") as f:
-                counts.append(int(f["X"].shape[-1]))
-        else:
-            counts.append(None)
-    return counts
+    spectrogram to the video length), from the lip video ``.h5`` or
+    ``.npz`` beside each label file's path; None where neither exists."""
+    return [video_frames(os.path.join(
+        processed_dir, rel.replace("Clean", "matlab_raw").replace("_" + labels, "")))
+        for rel in clean_rel_paths]
 
 
 def shard_slice(items, shard: tuple[int, int] | None):

@@ -1,4 +1,4 @@
-"""A synthetic NTCD-TIMIT processed tree for the port's sweep tests.
+"""Synthetic NTCD-TIMIT trees for the port's tests.
 
 ``make_tree(root)`` writes ``root/data/subset/processed/ntcd_timit/``:
 clean wavs and their per-utterance label h5s (``Y`` of shape (y_dim,
@@ -6,7 +6,9 @@ n_frames), VAD and IBM) under ``Clean/test/<spk>/``, and the noisy mixtures
 of the subset grid (Babble and LR at -5 dB) under ``Noisy/``; with
 ``video`` also lip-video h5s (``X`` with fewer frames than the audio, so
 the sweep trims) under ``matlab_raw/test/<spk>/``. Returns the utterances
-as ``{(spk, utt): n_samples}``.
+as ``{(spk, utt): n_samples}``. ``make_raw_tree(raw)`` writes a raw tree
+for the builders (clean wavs, ``.mat`` placeholders, optionally raw noisy
+mixtures), ``write_videos(proc)`` processed lip videos, ``.h5`` or ``.npz``.
 """
 
 import numpy as np
@@ -53,17 +55,25 @@ RAW_UTTS = {"train": {("spk01", "sa1"): 16000, ("spk01", "sx2"): 22400, ("spk02"
 # that have one: fewer frames than the audio, and a height below both, so
 # the trim and the legacy trim (to the height) each cut
 RAW_VIDEOS = {("train", "spk01", "sx2"): (20, 3, 40), ("validation", "spk03", "sa1"): (30, 3, 25)}
-SPLIT_DIRS = {"train": "train", "validation": "dev"}
+SPLIT_DIRS = {"train": "train", "validation": "dev", "test": "test"}
+# a lip video for every train utterance, as the audio builder's noisy
+# statistics need: two trim the audio, one is longer than it
+AUDIO_VIDEOS = {("train", "spk01", "sa1"): (20, 3, 50), ("train", "spk01", "sx2"): (20, 3, 40),
+                ("train", "spk02", "si3"): (20, 3, 100)}
+NOISY_DIR = "ntcd_timit/u/drspeech/data/TCDTIMIT/Noisy_TCDTIMIT"
 
 
-def make_raw_tree(raw, proc=None, utts=RAW_UTTS, videos=RAW_VIDEOS, seed=0):
-    """A raw NTCD-TIMIT tree for the frame-set builders under ``raw``: the
-    clean utterances as ``ntcd_timit/Clean/volunteers/<spk>/straightcam/
+def make_raw_tree(raw, proc=None, utts=RAW_UTTS, videos=RAW_VIDEOS, seed=0, noisy=()):
+    """A raw NTCD-TIMIT tree for the builders under ``raw``: the clean
+    utterances as ``ntcd_timit/Clean/volunteers/<spk>/straightcam/
     <utt>.wav`` (tones in bursts over a little noise) and a placeholder
     ``ntcd_timit/matlab_raw/<split dir>/<spk>/<utt>.mat`` for each (the
-    catalog lists the .mat files); with ``proc``, the processed lip-video
-    h5s of ``videos`` under ``proc/ntcd_timit/matlab_raw/...`` (h5py)."""
+    catalog lists the .mat files); with ``noisy``, a list of (noise type,
+    SNR), each utterance's raw mixture under ``<NOISY_DIR>/<noise>/<snr>/
+    volunteers/<spk>/straightcam/<utt>.wav``; with ``proc``, the processed
+    lip-video h5s of ``videos`` (:func:`write_videos`)."""
     rng = np.random.default_rng(seed)
+    cleans = {}
     for split, entries in utts.items():
         for (spk, utt), n in entries.items():
             mat = raw / "ntcd_timit" / "matlab_raw" / SPLIT_DIRS[split] / spk / f"{utt}.mat"
@@ -73,13 +83,31 @@ def make_raw_tree(raw, proc=None, utts=RAW_UTTS, videos=RAW_VIDEOS, seed=0):
             wav.parent.mkdir(parents=True, exist_ok=True)
             t = np.arange(n) / 16000
             tone = np.sin(2 * np.pi * (120 + 200 * rng.random()) * t) * (t % 0.4 < 0.25)
-            write_wav(wav, 0.3 * tone + 0.01 * rng.standard_normal(n), 16000)
+            cleans[spk, utt] = 0.3 * tone + 0.01 * rng.standard_normal(n)
+            write_wav(wav, cleans[spk, utt], 16000)
+    noise_rng = np.random.default_rng(seed + 1)
+    for noise, snr in noisy:
+        for (spk, utt), clean in cleans.items():
+            wav = raw / NOISY_DIR / noise / snr / "volunteers" / spk / "straightcam" / f"{utt}.wav"
+            wav.parent.mkdir(parents=True, exist_ok=True)
+            mix = clean + 0.05 * noise_rng.standard_normal(len(clean))
+            write_wav(wav, mix / np.abs(mix).max() * 0.9, 16000)
     if proc is not None:
+        write_videos(proc, videos)
+
+
+def write_videos(proc, videos=RAW_VIDEOS, fmt="h5"):
+    """The processed lip videos ``videos`` ({(split, spk, utt): shape of
+    X}) under ``proc/ntcd_timit/matlab_raw/<split dir>/<spk>/
+    <utt>_upsampled.<fmt>``: ``h5`` (h5py) or ``npz``."""
+    for (split, spk, utt), shape in videos.items():
+        path = proc / "ntcd_timit" / "matlab_raw" / SPLIT_DIRS[split] / spk / \
+            f"{utt}_upsampled.{fmt}"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        if fmt == "npz":
+            np.savez(path, X=np.zeros(shape, np.float32))
+            continue
         import h5py
 
-        for (split, spk, utt), shape in videos.items():
-            path = proc / "ntcd_timit" / "matlab_raw" / SPLIT_DIRS[split] / spk / \
-                f"{utt}_upsampled.h5"
-            path.parent.mkdir(parents=True, exist_ok=True)
-            with h5py.File(path, "w") as f:
-                f["X"] = np.zeros(shape, np.float32)
+        with h5py.File(path, "w") as f:
+            f["X"] = np.zeros(shape, np.float32)

@@ -807,3 +807,74 @@ def test_cuda_create_train_set_npz_matches_cpu(cuda, tmp_path, labels):
             assert (got[f"Y_{split}"] != want[f"Y_{split}"]).mean() <= 1e-4
     for k in ("X_train_mean", "X_train_std"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_build_audio_train_set_matches_cpu(cuda, tmp_path):
+    """``build_audio_train_set(fmt="npz")`` on the card (two utterances per
+    launch: one launch per chunk of clean utterances and one per chunk of
+    noisy train mixtures) against the same build on the CPU: the copies
+    byte for byte, the VAD labels exactly, the noisy log-power statistics
+    at rtol 5e-4 (the FFT and the plain matmul DFT round a frame's
+    low-power bin each its own way; on the CPU the port and the JAX
+    builder differ by as much)."""
+    from _ntcd_tree import AUDIO_VIDEOS, RAW_UTTS, make_raw_tree, write_videos
+    from dvae_tpu_torch.data.builders import NOISY_STATS, build_audio_train_set
+
+    utts = dict(RAW_UTTS, test={("spk04", "sa1"): 12000, ("spk04", "sx5"): 17600})
+    make_raw_tree(tmp_path / "raw", utts=utts, noisy=[("Babble", "-5"), ("LR", "-5")])
+    files = {}
+    for platform in ("cuda", "cpu"):
+        out = tmp_path / platform
+        write_videos(out, AUDIO_VIDEOS, "npz")
+        before = stft_power.launches
+        stats = build_audio_train_set(tmp_path / "raw", out, dataset_size="subset",
+                                      fmt="npz", chunk=2, device=platform)
+        # clean: 2 + 1 + 1 chunks of train, validation, test; noisy train: 6 / 2
+        assert stft_power.launches - before == (7 if platform == "cuda" else 0)
+        assert stats == out / f"{NOISY_STATS}.npz"
+        files[platform] = {str(p.relative_to(out)): p for p in sorted(out.rglob("*"))
+                           if p.is_file()}
+    got, want = files["cuda"], files["cpu"]
+    assert got.keys() == want.keys()
+    for k, p in got.items():
+        if k.endswith(".wav"):
+            assert p.read_bytes() == want[k].read_bytes()
+        elif k.endswith("_vad_labels_upsampled.npz"):
+            with np.load(p) as a, np.load(want[k]) as b:
+                np.testing.assert_array_equal(a["Y"], b["Y"])
+    with np.load(got[f"{NOISY_STATS}.npz"]) as a, np.load(want[f"{NOISY_STATS}.npz"]) as b:
+        for k in ("X_train_mean", "X_train_std"):
+            np.testing.assert_allclose(a[k], b[k], rtol=5e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_predict_batch_matches_plain(cuda):
+    """A ``predict_vad_labels`` batch (``batch_utterances`` with
+    ``StftConfig(center=True)``, one STFT power launch) on the card against
+    the plain path on the CPU: the log power at 1e-3 absolute on the bins
+    above 1e-6 of the peak power, labels and mask exactly; then one
+    ``LSTMVad`` over both batches, the posteriors at atol 1e-3."""
+    from dvae_tpu_torch.models import LSTMVad
+    from dvae_tpu_torch.train.sequence import batch_utterances, make_lstm_vad_predict
+
+    rng = np.random.default_rng(4)
+    ds = []
+    for n in (12000, 17600, 9600, 30000):
+        t = np.arange(n) / 16000
+        x = np.sin(2 * np.pi * 180 * t) * (t % 0.5 < 0.3) + 0.05 * rng.standard_normal(n)
+        ds.append(((x / np.abs(x).max()).astype(np.float32),
+                   (rng.uniform(size=(n // 256 + 1, 1)) > 0.5).astype(np.float32)))
+    cfg = StftConfig(center=True)
+    before = stft_power.launches
+    xk, yk, mk = batch_utterances(ds, range(len(ds)), cfg, device=cuda)
+    assert stft_power.launches - before == 1
+    xp, yp, mp = batch_utterances(ds, range(len(ds)), cfg, device="cpu")
+    assert torch.equal(yk.cpu(), yp) and torch.equal(mk.cpu(), mp)
+    power = xp.exp()
+    big = power > 1e-6 * power.amax()
+    assert float((xk.cpu() - xp)[big].abs().max()) < 1e-3
+    model = LSTMVad(513, 64, 2, generator=torch.Generator().manual_seed(0))
+    pk = make_lstm_vad_predict(model.to(cuda))(xk).cpu()
+    pp = make_lstm_vad_predict(model.cpu())(xp)
+    np.testing.assert_allclose(pk.numpy(), pp.numpy(), atol=1e-3, rtol=0)
