@@ -160,7 +160,28 @@ Phases, in order; any failure exits non-zero:
    against its plain version and timed at the builder's chunk (power) and a
    predict batch (log, centred), B1 at the sweep's first batch, the
    full-width LSTM train step and predict batch, and each CLI's wall, each
-   with the card's name and power limit.
+   with the card's name and power limit;
+15. the lip-video and audio-visual VAD chain at full width, on phase 14's
+   tree: synthetic DCT lip frames at 30 fps per utterance (a low-order
+   block following the clean utterance's envelope) through the video
+   builder's per-utterance core (``build_video``: the IDCT on the card,
+   the VAD labels, the 62.5 fps upsample) into ``.npz`` videos, labels and
+   pixel statistics in ``build_video_files``' layout, held against the
+   same core on the CPU (pixels within 1e-3 on 0-255, labels exactly,
+   statistics at rtol 1e-5); ``train_video_net --modality video`` and
+   ``--modality av`` (``hidden`` 512, 2 layers, ``emb_dim`` 128, batch 16,
+   3 epochs, ``--std-norm``; side by side, each a process: exit 0, a finite
+   BCE that falls, one ``.pt`` per epoch, one B2 launch per AV batch);
+   ``predict_vad_labels --modality video`` (one hard and one soft file per
+   utterance) and ``--modality av --snr all`` (per mixture), the F1
+   against the oracle printed without a limit; ``evaluate_ntcd_m2
+   --y-source classifier`` on the video predictions with phase 12's M2 VAD
+   prior (niter + 1 bf16-body chain launches per batch, finite outputs, the
+   Wiener partition); the trained models on the card against the CPU
+   (posteriors within 1e-4); then B2 held against its plain version and
+   timed at an AV train batch, B1 at the sweep's first batch, the
+   full-width ``VideoVad`` / ``AVVad`` train step, predict batch and
+   batcher, and each CLI's wall, each with the card's name and power limit.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -1872,7 +1893,7 @@ def run_module(module: str, argv: list, count_stft: bool = False) -> tuple:
     else:
         cmd = [sys.executable, "-m", module, *argv]
     r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
-    check(r.returncode == 0, f"{module} {' '.join(argv)} exited {r.returncode}:\n"
+    check(r.returncode == 0, f"{module} {' '.join(map(str, argv))} exited {r.returncode}:\n"
                              f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
     launches = None
     if count_stft:
@@ -2541,6 +2562,345 @@ def audio_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str) -> list:
                         sum(v[0] for v in outputs.values()), seg), b2_builder, b2_pred]
 
 
+VIDEO_EPOCHS, VIDEO_SIDE = 3, 67
+# the trainers' full widths (train_video_net's defaults)
+VIDEO_WIDTHS = {"hidden": 512, "num_layers": 2, "emb_dim": 128}
+
+
+def lip_dct_frames(clean: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Synthetic DCT lip frames of a clean utterance at 30 fps, (n, 67 *
+    67): a floor of coefficients decaying with their order, and a low-order
+    block (the mouth's coarse shape) whose gain follows the utterance's
+    speech envelope, so that a lip net has something to learn."""
+    side = VIDEO_SIDE
+    n = int(np.ceil(len(clean) / FS * 30))
+    env = np.array([np.sqrt(np.mean(s ** 2)) if len(s) else 0.0
+                    for s in np.array_split(clean, n)])
+    env = env / max(env.max(), 1e-12)
+    decay = np.exp(-np.add.outer(np.arange(side), np.arange(side)) / 8.0)
+    dct = rng.standard_normal((n, side, side)) * decay * 300.0
+    dct[:, :4, :4] += 4000.0 * env[:, None, None] * np.array(
+        [[1.0, -0.6, 0.4, -0.2], [0.7, 0.5, -0.3, 0.2], [-0.4, 0.3, 0.2, -0.1],
+         [0.2, -0.1, 0.1, 0.05]])
+    return dct.reshape(n, side * side)
+
+
+def video_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str) -> list:
+    """Phase 15 on the card: the lip-video and audio-visual VAD chain at
+    full width on phase 14's tree (``work``): synthetic DCT lip frames per
+    utterance through the video builder's per-utterance core (the IDCT on
+    the card, held against the CPU) into ``.npz`` videos, labels and pixel
+    statistics; ``train_video_net --modality video`` and ``--modality av``
+    (B2 per AV batch); ``predict_vad_labels --modality video`` and ``av``;
+    ``evaluate_ntcd_m2 --y-source classifier`` on the video net's labels
+    (B1); then the card's models against the CPU's, the kernels at this
+    path's launches and the times. Returns the kernels-line entries."""
+    import torch
+
+    from dvae_tpu_torch.cli import evaluate_ntcd_m2
+    from dvae_tpu_torch.data.av_dataset import AudioVisualDataset, VideoDataset
+    from dvae_tpu_torch.data.builders import (
+        NOISY_STATS,
+        build_video,
+        save_video_statistics,
+        write_video,
+    )
+    from dvae_tpu_torch.data.catalog import ntcd_timit
+    from dvae_tpu_torch.data.io import read_labels, read_wav
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.evaluate import find_classifier_labels
+    from dvae_tpu_torch.enhance.mcem import McemConfig
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import CVAE, AVVad, VideoVad
+    from dvae_tpu_torch.ops import stft_power
+    from dvae_tpu_torch.ops.stft import StftConfig, pad_signal
+    from dvae_tpu_torch.train import checkpoint as ckpt
+    from dvae_tpu_torch.train.sequence import (
+        batch_av_utterances,
+        batch_video_utterances,
+        make_lstm_vad_predict,
+        make_lstm_vad_step,
+        pad_av_utterances,
+    )
+    from dvae_tpu_torch.train.steps import adam
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    data = os.path.join(work, "data")
+    raw, proc = os.path.join(data, "subset", "raw"), os.path.join(data, "subset", "processed")
+    astats = os.path.join(proc, NOISY_STATS + ".npz")
+    walls = {}
+
+    # ---- 15a. a lip video per utterance of phase 14's tree, through the
+    # builder's per-utterance core on the card, held against the CPU
+    rng = np.random.default_rng(SEED + 15)
+    sums = {"cuda": [0, 0.0, 0.0], "cpu": [0, 0.0, 0.0]}
+    pixel_err, label_off, audio_off, n_videos, card_s = 0.0, 0, 0, {}, 0.0
+    t0 = time.perf_counter()
+    for split in ("train", "validation", "test"):
+        mats = ntcd_timit.video_list(raw + "/", split)
+        clean_rels, _ = ntcd_timit.speech_list(raw + "/", split)
+        n_videos[split] = len(mats)
+        for mat_rel, clean_rel in zip(mats, clean_rels):
+            speech = read_wav(os.path.join(raw, clean_rel))[0]
+            dct = lip_dct_frames(speech, rng)
+            t1 = time.perf_counter()
+            vk = build_video(dct, speech, device=dev)
+            card_s += time.perf_counter() - t1
+            vp = build_video(dct, speech, device="cpu")
+            pixel_err = max(pixel_err, float(np.abs(vk.x - vp.x).max()))
+            label_off += int((vk.y != vp.y).sum())
+            write_video(proc, mat_rel, "vad_labels", vk, "npz")
+            if split == "train":
+                for key, v in (("cuda", vk.x), ("cpu", vp.x)):
+                    v64 = v.astype(np.float64)
+                    sums[key][0] += v64.size
+                    sums[key][1] += float(v64.sum())
+                    sums[key][2] += float((v64 * v64).sum())
+    vstats = str(save_video_statistics(proc, *sums["cuda"], "npz"))
+    cpu_stats = save_video_statistics(os.path.join(work, "cpu_stats"), *sums["cpu"], "npz")
+    walls["video build (card, CPU, writes)"] = time.perf_counter() - t0
+    with np.load(vstats) as got, np.load(cpu_stats) as want:
+        stat_err = {k: float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+                    for k in ("X_train_mean", "X_train_std")}
+        pixel_mean, pixel_std = float(got["X_train_mean"][0, 0]), float(got["X_train_std"][0, 0])
+    # the audio builder of phase 14 wrote the same labels over the same wavs
+    for r, _, fs in os.walk(os.path.join(proc, "ntcd_timit", "Clean")):
+        for f in fs:
+            if f.endswith("_vad_labels_upsampled.npz"):
+                lab = read_labels(os.path.join(r, f))
+                vid = os.path.join(r.replace(os.sep + "Clean" + os.sep,
+                                             os.sep + "matlab_raw" + os.sep),
+                                   f.replace("_vad_labels_upsampled", "_upsampled"))
+                with np.load(vid) as v:
+                    audio_off += int(v["X"].shape[-1] != lab.shape[1])
+    check(pixel_err <= 1e-3 and label_off == 0 and max(stat_err.values()) <= 1e-5
+          and audio_off == 0,
+          f"video build: pixels {pixel_err}, labels off {label_off}, statistics {stat_err}, "
+          f"{audio_off} videos off their label frames")
+    log(f"phase 15: lip videos for {n_videos} utterances (synthetic DCT frames at 30 fps, "
+        f"67 x 67) through build_video on the card ({card_s:.2f} s of the "
+        f"{walls['video build (card, CPU, writes)']:.2f} s that card, CPU "
+        f"and .npz writes took): pixels within {pixel_err:.3e} of the CPU's (limit 1e-3 on "
+        f"0-255), VAD labels exact, pixel statistics mean {pixel_mean:.4f} std "
+        f"{pixel_std:.4f} within {max(stat_err.values()):.3e} relative (limit 1e-5); every "
+        f"video has its label file's frames {tag}")
+
+    # ---- 15b. train_video_net, both modalities side by side
+    models = os.path.join(work, "models")
+    widths = ["--hidden", str(VIDEO_WIDTHS["hidden"]), "--num-layers",
+              str(VIDEO_WIDTHS["num_layers"]), "--emb-dim", str(VIDEO_WIDTHS["emb_dim"])]
+    tag_w = f"{VIDEO_WIDTHS['hidden']}x{VIDEO_WIDTHS['num_layers']}"
+    runs = {m: os.path.join(models, f"ntcd_{m}_vad_{tag_w}_norm") for m in ("video", "av")}
+    n_mix = {k: len(AUDIO_NOISES) * v for k, v in n_videos.items()}
+
+    def train(modality):
+        argv = ["--data-root", data, "--models-root", models, "--modality", modality,
+                "--end-epoch", str(VIDEO_EPOCHS + 1), "--std-norm", "--video-stats-h5", vstats,
+                "--stats-h5", astats, *widths]
+        t1 = time.perf_counter()
+        out, n = run_module("dvae_tpu_torch.cli.train_video_net", argv, count_stft=True)
+        return out, n, time.perf_counter() - t1
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        trained = dict(zip(("video", "av"), pool.map(train, ("video", "av"))))
+    walls["train_video_net x 2, side by side"] = time.perf_counter() - t0
+    n_av_train = 0
+    for modality, (out, n_b2, wall) in trained.items():
+        walls[f"train_video_net --modality {modality}"] = wall
+        train_m, valid_m = sequence_metrics(out)
+        bces = [(t["bce"], v["bce"]) for t, v in zip(train_m, valid_m)]
+        check(len(bces) == VIDEO_EPOCHS and np.isfinite(bces).all(), f"{modality} BCE {bces}")
+        check(bces[-1][0] < bces[0][0], f"the {modality} train BCE did not fall: {bces}")
+        prefix = "AV_Net" if modality == "av" else "Video_Net"
+        pts = ckpt.checkpoints(runs[modality], f"{prefix}_epoch_*.pt")
+        check(len(pts) == VIDEO_EPOCHS, f"{len(pts)} .pt files under {runs[modality]}")
+        items = n_mix if modality == "av" else n_videos
+        per_epoch = -(-items["train"] // VAD_BATCH) + -(-items["validation"] // VAD_BATCH)
+        want = VIDEO_EPOCHS * per_epoch if modality == "av" else 0
+        check(n_b2 == want, f"{modality}: {n_b2} stft_power launches, expected {want}")
+        if modality == "av":
+            n_av_train = n_b2
+        log(f"phase 15: train_video_net --modality {modality} {prefix} ({tag_w}, emb_dim "
+            f"{VIDEO_WIDTHS['emb_dim']}) --std-norm, batch {VAD_BATCH}, {items['train']} + "
+            f"{items['validation']} {'mixtures' if modality == 'av' else 'utterances'}, "
+            f"{VIDEO_EPOCHS} epochs in {wall:.1f} s (a process of its own, the two modalities "
+            f"side by side): (train, valid) BCE per epoch {bces}; valid F1 per epoch "
+            f"{[v['f1'] for v in valid_m]}; {n_b2} stft_power launches; {len(pts)} .pt {tag}")
+
+    # ---- 15c. predict_vad_labels, both modalities side by side
+    preds = {m: os.path.join(work, f"preds_{m}") for m in ("video", "av")}
+
+    def predict_cli(modality):
+        argv = ["--data-root", data, "--models-root", models, "--model-dir", runs[modality],
+                "--modality", modality, "--std-norm", "--video-stats-h5", vstats,
+                "--stats-h5", astats, "--output-dir", preds[modality], *widths]
+        if modality == "av":
+            argv += ["--snr", "all"]
+        t1 = time.perf_counter()
+        out, n = run_module("dvae_tpu_torch.cli.predict_vad_labels", argv, count_stft=True)
+        return out, n, time.perf_counter() - t1
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        predicted = dict(zip(("video", "av"), pool.map(predict_cli, ("video", "av"))))
+    n_av_pred = 0
+    pairs = ntcd_timit.proc_noisy_clean_pair_dict(proc + "/", "test", "subset", "vad_labels",
+                                                  True)
+    for modality, (out, n_b2, wall) in predicted.items():
+        walls[f"predict_vad_labels --modality {modality}"] = wall
+        n_items = n_mix["test"] if modality == "av" else n_videos["test"]
+        said = [x for x in out.splitlines() if x.startswith("vs oracle:")]
+        check(len(said) == 1 and f"done: {n_items} utterances" in out,
+              f"predict_vad_labels --modality {modality} said {out[-600:]!r}")
+        want = -(-n_items // VAD_BATCH) if modality == "av" else 0
+        check(n_b2 == want, f"{modality} predict: {n_b2} stft_power launches, expected {want}")
+        if modality == "av":
+            n_av_pred = n_b2
+            stems = [(os.path.splitext(n)[0], c) for n, c in pairs.items()]
+        else:
+            stems = sorted({(os.path.splitext(c.replace(
+                "_vad_labels_upsampled.npz", ".wav"))[0], c) for c in pairs.values()})
+        ok = 0
+        for stem, clean_rel in stems:
+            base = os.path.join(preds[modality], stem)
+            hard, soft = np.load(base + "_y_hat_hard.npy"), np.load(base + "_y_hat_soft.npy")
+            n_oracle = read_labels(os.path.join(proc, clean_rel)).shape[1]
+            frames_ok = len(hard) == n_oracle if modality == "video" else \
+                n_oracle - 8 <= len(hard) <= n_oracle
+            ok += (len(hard) == len(soft) and frames_ok
+                   and np.array_equal(hard, (soft > 0.5).astype(np.float32)))
+        check(ok == len(stems) == n_items, f"{modality}: {ok} of {len(stems)} predictions")
+        log(f"phase 15: predict_vad_labels --modality {modality} in {wall:.1f} s (a process of "
+            f"its own, side by side with the other): {n_items} "
+            f"{'mixtures' if modality == 'av' else 'utterances, the clean layout'}, a hard and "
+            f"a soft .npy each ({'the oracle frame count' if modality == 'video' else 'trimmed to the audio frames'}), "
+            f"{n_b2} stft_power launches; {said[0]} (no limit) {tag}")
+
+    # ---- 15d. evaluate_ntcd_m2 on phase 12's M2 VAD prior, video-net labels
+    mc = McemConfig()
+    batches = -(-n_mix["test"] // 16)
+    out_dir = os.path.join(work, "enh_video")
+    mh_chain.launches = mh_chain.launches_mma = 0
+    t0 = time.perf_counter()
+    n_done = evaluate_ntcd_m2.main(["--data-root", data, "--checkpoint", m2_vad, "--snr", "all",
+                                    "--y-source", "classifier", "--classifier-dir",
+                                    preds["video"], "--output-dir", out_dir])
+    walls["evaluate_ntcd_m2 --y-source classifier (video-net labels)"] = \
+        time.perf_counter() - t0
+    n_b1, n_mma = mh_chain.launches, mh_chain.launches_mma
+    check(n_done == n_mix["test"] and n_b1 == n_mma == batches * (mc.niter + 1),
+          f"video-net labels: {n_done} enhanced, {n_mma} bf16 launches of {n_b1}")
+    worst, finite = 0.0, True
+    for noisy_rel in pairs:
+        x = read_wav(os.path.join(proc, noisy_rel))[0]
+        base = os.path.join(out_dir, os.path.splitext(noisy_rel)[0])
+        s_hat = read_wav(base + "_s_est_y_hat_hard.wav")[0]
+        n_hat = read_wav(base + "_n_est_y_hat_hard.wav")[0]
+        finite &= bool(np.isfinite(s_hat).all() and np.isfinite(n_hat).all())
+        core = slice(1024, min(len(x), len(s_hat)) - 1024)
+        lim = 1e-4 * np.abs(x).max() + 1 / 32768
+        worst = max(worst, float(np.abs(s_hat[:len(x)] + n_hat[:len(x)] - x[:len(s_hat)])[core]
+                                 .max() / lim))
+    check(finite and worst <= 1.0, f"video-net labels: finite {finite}, partition at {worst}")
+    log(f"phase 15: evaluate_ntcd_m2 --y-source classifier on the video net's labels over "
+        f"{n_done} mixtures in "
+        f"{walls['evaluate_ntcd_m2 --y-source classifier (video-net labels)']:.2f} s: {n_mma} "
+        f"bf16-body mh_chain launches of {n_b1} (niter + 1 = {mc.niter + 1} per batch of 16, "
+        f"{batches} batches); outputs finite; Wiener partition max |s + n - x| at {worst:.3f} "
+        f"of its limit (1e-4 of the peak + 1 PCM16 step) {tag}")
+
+    # ---- 15e. the trained models on the card against the CPU, same weights
+    cfg = StftConfig(center=True)
+    pixel_norm = (np.float32([[pixel_mean]]), np.float32([[pixel_std]]))
+    with np.load(astats) as f:
+        audio_norm = (f["X_train_mean"], f["X_train_std"])
+    test_v = VideoDataset([(os.path.join(proc, ntcd_timit.video_h5_rel(c)), os.path.join(proc, c))
+                           for c in sorted(set(pairs.values()))])
+    todo = sorted(pairs.items(), key=lambda t: (os.path.getsize(os.path.join(proc, t[0])), t[0]))
+    test_av = AudioVisualDataset([(os.path.join(proc, n), os.path.join(
+        proc, ntcd_timit.video_h5_rel(c)), os.path.join(proc, c)) for n, c in todo])
+    few = range(min(4, len(test_v)))
+    vb = batch_video_utterances(test_v, few, device="cpu")[0]
+    (sb, avb), _, _ = batch_av_utterances(test_av, few, cfg, device="cpu")
+    fwd_err = {}
+    for modality, cls, x_cpu, norm in (("video", VideoVad, vb, pixel_norm),
+                                       ("av", AVVad, (sb, avb), (audio_norm, pixel_norm))):
+        model = cls(**VIDEO_WIDTHS)
+        best = ckpt.best_checkpoint(runs[modality])
+        model.load_state_dict(torch.load(best, map_location="cpu", weights_only=True))
+        p_cpu = make_lstm_vad_predict(model, norm=norm)(x_cpu)
+        x_card = tuple(t.to(dev) for t in x_cpu) if modality == "av" else x_cpu.to(dev)
+        p_card = make_lstm_vad_predict(model.to(dev), norm=norm)(x_card).cpu()
+        fwd_err[modality] = float((p_card - p_cpu).abs().max())
+    check(max(fwd_err.values()) <= 1e-4, f"card vs CPU forward: {fwd_err}")
+    log(f"phase 15: the trained VideoVad and AVVad (best .pt of each) on the card (cuDNN convs "
+        f"and LSTMs, TF32 off) against the CPU on {len(few)} test utterances at "
+        f"{tuple(vb.shape)}: max "
+        f"abs posterior diff video {fwd_err['video']:.3e}, av {fwd_err['av']:.3e} (limit "
+        f"1e-4) {tag}")
+
+    # ---- 15f. the kernels at this path's launches, and the times
+    enh = Enhancer(CVAE(513, 1, 16, (128, 128)), EnhancerConfig(y_mode="enc_dec"))
+    enh.reload(torch.load(m2_vad, map_location="cpu", weights_only=True))
+    first = todo[:16]  # the sweep's first batch
+    s_wavs = [read_wav(os.path.join(proc, n))[0].astype(np.float32) for n, _ in first]
+    s_ys = [find_classifier_labels(preds["video"], n.split("/")[-2], "sa1", 1,
+                                   rel_dir=os.path.dirname(n)) for n, _ in first]
+    seg = conditioned_segment(enh.mats, cond_batch_inputs(enh, s_wavs, s_ys), mc, cuda_ms, agree)
+    log(f"phase 15: mh_chain bf16 body, E-step segment at the sweep's first batch (M2 VAD, "
+        f"video-net labels folded into the row bias (rows, {seg['h1']})) rows={seg['rows']} "
+        f"steps={seg['steps']}: kernel {seg['k_ms']:.4f} ms, plain {seg['p_ms']:.4f} ms, bound "
+        f"{seg['b_ms']:.4f} ms by {seg['b_by']}; frozen segment kernel vs plain: max abs err "
+        f"{seg['max_abs']:.3e}, {seg['said']} {tag}")
+    train_pairs = ntcd_timit.proc_noisy_clean_pair_dict(proc + "/", "train", "subset",
+                                                        "vad_labels", True)
+    train_av = AudioVisualDataset([(os.path.join(proc, n), os.path.join(
+        proc, ntcd_timit.video_h5_rel(c)), os.path.join(proc, c)) for n, c in train_pairs.items()])
+    av_xp = pad_signal(torch.from_numpy(pad_av_utterances(
+        train_av, range(min(VAD_BATCH, len(train_av))), cfg)[0]).to(dev), cfg).contiguous()
+    b2_av = time_stft(av_xp, True, "AV batch", n_av_train + n_av_pred, cuda_ms, tag, phase=15)
+
+    train_v = VideoDataset([(os.path.join(proc, ntcd_timit.video_h5_rel(c)), os.path.join(proc, c))
+                            for c in sorted(set(train_pairs.values()))])
+
+    def host_ms(fn, reps):
+        fn()
+        sync()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t1) / reps * 1e3
+
+    said = []
+    for modality, cls, batch, norm in (
+            ("video", VideoVad, lambda ds, idx: batch_video_utterances(ds, idx, device=dev),
+             pixel_norm),
+            ("av", AVVad, lambda ds, idx: batch_av_utterances(ds, idx, cfg, device=dev),
+             (audio_norm, pixel_norm))):
+        ds_train, ds_test = (train_v, test_v) if modality == "video" else (train_av, test_av)
+        model = cls(**VIDEO_WIDTHS, generator=torch.Generator().manual_seed(SEED)).to(dev)
+        step = make_lstm_vad_step(model, adam(model.parameters(), 1e-4), norm=norm)
+        predict = make_lstm_vad_predict(model, norm=norm)
+        xb, yb, mb = batch(ds_train, range(min(VAD_BATCH, len(ds_train))))
+        xt = batch(ds_test, range(min(VAD_BATCH, len(ds_test))))[0]
+        step_host = host_ms(lambda: step(xb, yb, mb), 20)
+        step_ev = cuda_ms(lambda: step(xb, yb, mb), reps=20, warm=2)
+        pred_host = host_ms(lambda: predict(xt).cpu(), 20)
+        pred_ev = cuda_ms(lambda: predict(xt), reps=20, warm=2)
+        batch_host = host_ms(lambda: batch(ds_test, range(min(VAD_BATCH, len(ds_test)))), 5)
+        shape = tuple((xb[1] if modality == "av" else xb).shape)
+        said.append(f"{cls.__name__} train step at {shape}: {step_host:.4f} ms host clock, "
+                    f"{step_ev:.4f} ms CUDA events; predict batch: {pred_host:.4f} ms host "
+                    f"clock (copy back included), {pred_ev:.4f} ms CUDA events; its batcher "
+                    f"{batch_host:.4f} ms host clock")
+    log(f"phase 15: {'; '.join(said)} {tag}")
+    log(f"phase 15: walls {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}; "
+        f"{time.perf_counter() - t_phase:.1f} s in all {tag}")
+    return [chain_entry("mh_chain (M2 VAD sweep on video-net labels)", n_b1, seg), b2_av]
+
+
 def main() -> int:
     import torch
 
@@ -2857,6 +3217,7 @@ def main() -> int:
             cli_entries = cli_chain_phase(wavs, cleans, cuda_ms, agree, tag, work)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
             audio_entries = audio_vad_phase(m2_vad, cuda_ms, agree, tag, work)
+            video_entries = video_vad_phase(m2_vad, cuda_ms, agree, tag, work)
     peem_profile(enh.mats, (x2b, z0b, maskb), cfg.mcem, tag)
 
     def m1_chain_entry(name, fast, n):
@@ -2870,7 +3231,7 @@ def main() -> int:
                                 m1_chain_entry("mh_chain_f32", False, launches_f32),
                                 *stft_entries, *cond_entries, *engine_entries,
                                 *serving_entries, *labelled_entries, *cli_entries,
-                                *audio_entries]}))
+                                *audio_entries, *video_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -18,8 +18,11 @@ an ``.h5`` frame set to the ``.npz`` that a machine without ``h5py`` reads.
 :func:`build_audio_train_set` copies the clean and noisy wavs into the
 processed layout and writes each clean utterance's label file and the
 noisy train mixtures' log-power statistics, again a chunk of utterances
-per launch. :func:`copy_ntcd_noisy_test` and :func:`build_qut_test_set`
-are host-only (copies; QUT-noise mixtures).
+per launch. :func:`build_video_files` walks the lip videos around the
+per-utterance core :func:`build_video`: the IDCT preprocess on the device,
+the clean utterance's labels, the 30 -> 62.5 fps upsample, and the train
+split's pixel statistics. :func:`copy_ntcd_noisy_test` and
+:func:`build_qut_test_set` are host-only (copies; QUT-noise mixtures).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from dvae_tpu_torch.device import resolve_device
 from dvae_tpu_torch.ops.stft import StftConfig, frame_signal, pad_signal
 from dvae_tpu_torch.ops.stft_power import log_power_spectrogram, power_spectrogram
 from dvae_tpu_torch.ops.targets import ibm_from_db, vad_from_energy
+from dvae_tpu_torch.ops.video import preprocess_utterance, upsample_frames
 
 DEFAULT_STFT = StftConfig(center=False)  # builder parametrization
 # the frames of a waveform padded as DEFAULT_STFT pads it alone
@@ -56,6 +60,9 @@ FS = 16000
 LABELS = ("vad_labels", "ibm_labels")
 FORMATS = ("h5", "npz")
 NOISY_STATS = "ntcd_timit/Noisy/ntcd_timit_log_power_spec_upsampled_statistics"
+VIDEO_STATS = "ntcd_timit/matlab_raw/ntcd_timit_upsampled_statistics"
+VISUAL_FPS_IN = 30.0
+VISUAL_FPS_OUT = 62.5  # = 1 / (wlen_sec * hop_percent), create_video_train_files.py:57-58
 
 
 def _empirical_std(sq_sum, mean, n):
@@ -123,8 +130,7 @@ def build_frames(wavs, cfg: StftConfig = DEFAULT_STFT, max_frames=None,
     rounding of the utterance's peak - 50 dB may come out the other way.
     Each utterance's labels are computed over all its frames, then trimmed
     with its rows (``n = min(spec frames, label frames, max_frames)``)."""
-    if labels is not None and labels not in LABELS:
-        raise ValueError(f"unknown labels {labels!r}; expected one of {LABELS}")
+    _check_labels(labels)
     batch, frames = padded_batch(wavs, cfg)
     dev = resolve_device(device)
     # the rows are padded already: frame them as they stand
@@ -242,6 +248,11 @@ def build_frame_dataset(input_dir, output_dir, labels: str = "vad_labels",
     if h5 is None:
         save_arrays(out_path, arrays)
     return out_path
+
+
+def _check_labels(labels) -> None:
+    if labels is not None and labels not in LABELS:
+        raise ValueError(f"unknown labels {labels!r}; expected one of {LABELS}")
 
 
 def _check_format(fmt: str) -> None:
@@ -373,6 +384,130 @@ def build_audio_train_set(input_dir, output_dir, dataset_types=("train", "valida
                                 "X_train_std": _empirical_std(sq_sum, mean, n)[:, None].astype(
                                     np.float32)})
     return stats
+
+
+class Video(NamedTuple):
+    x: np.ndarray  # (H, W, frames) float32 upsampled lip video in [0, 255]
+    y: np.ndarray  # (y_dim, frames) float32 labels of the clean utterance
+
+
+def utterance_labels(speech, labels: str = "vad_labels", device=None) -> np.ndarray:
+    """(y_dim, frames) float32 labels of one clean utterance over all its
+    frames, peak-normalized and padded as the builders pad it
+    (``DEFAULT_STFT``): the VAD from the framed energy, or the IBM from the
+    power spectrogram, one STFT power launch on the card. The labels
+    :func:`build_frames` gives the same utterance."""
+    _check_labels(labels)
+    dev = resolve_device(device)
+    batch, frames = padded_batch([speech], DEFAULT_STFT)
+    batch = batch.to(dev)
+    spec = power_spectrogram(batch, _FRAMING) if labels == "ibm_labels" else None
+    own = torch.ones((1, frames[0]), dtype=torch.bool, device=dev)
+    y = _frame_labels(labels, batch, spec, own, _FRAMING)[0, :frames[0]]
+    return np.ascontiguousarray(y.T.cpu().numpy(), dtype=np.float32)
+
+
+def build_video(dct_frames, speech, labels: str = "vad_labels", width: int = 67,
+                height: int = 67, device=None) -> Video:
+    """One utterance of :func:`build_video_files`: the lip video's DCT
+    frames ((n, width * height) at 30 fps) preprocessed on ``device`` (CUDA
+    unless ``device="cpu"``, ``ops/video.py``), the clean waveform's labels
+    (:func:`utterance_labels`), and the video upsampled to 62.5 fps, one
+    frame per label frame."""
+    dev = resolve_device(device)
+    video = preprocess_utterance(dct_frames, width, height, dev)  # (n, H, W)
+    y = utterance_labels(speech, labels, dev)
+    up = upsample_frames(video, VISUAL_FPS_IN, VISUAL_FPS_OUT, n_out=y.shape[-1])
+    return Video(np.ascontiguousarray(np.moveaxis(up, 0, -1)), y)
+
+
+def write_video(output_dir, mat_rel: str, labels: str, video: Video, fmt: str = "h5") -> None:
+    """Write ``video`` where :func:`build_video_files` puts the lip video
+    ``mat_rel`` (``ntcd_timit/matlab_raw/<split>/<spk>/<utt>.mat``):
+    ``<utt>_upsampled.<fmt>`` beside where the ``.mat`` lies in the raw
+    tree (``X``) and ``ntcd_timit/Clean/<split>/<spk>/
+    <utt>_<labels>_upsampled.<fmt>`` (``Y``)."""
+    base = pathlib.Path(output_dir) / pathlib.Path(mat_rel).with_suffix("")
+    out = base.parent / (base.name + f"_upsampled.{fmt}")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    save_arrays(out, {"X": np.asarray(video.x, np.float32)})
+    lab = pathlib.Path(output_dir) / pathlib.Path(
+        mat_rel.replace("matlab_raw", "Clean")).with_suffix("")
+    lab = lab.parent / (lab.name + f"_{labels}_upsampled.{fmt}")
+    lab.parent.mkdir(parents=True, exist_ok=True)
+    write_labels(lab, video.y)
+
+
+def save_video_statistics(output_dir, n: int, s_sum: float, sq_sum: float,
+                          fmt: str = "h5") -> pathlib.Path:
+    """``X_train_mean`` / ``X_train_std`` ((1, 1) float32, the std
+    Bessel-corrected) of ``n`` train pixels with sum ``s_sum`` and sum of
+    squares ``sq_sum``, written to ``<output_dir>/ntcd_timit/matlab_raw/
+    ntcd_timit_upsampled_statistics.<fmt>``. Returns its path."""
+    mean = s_sum / n
+    path = pathlib.Path(output_dir) / f"{VIDEO_STATS}.{fmt}"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_arrays(path, {"X_train_mean": np.float32([[mean]]),
+                       "X_train_std": np.float32([[_empirical_std(sq_sum, mean, n)]])})
+    return path
+
+
+def _read_mat_frames(path) -> np.ndarray:
+    """The DCT frames of an NTCD lip ``.mat``: matlab v7.3, that is HDF5,
+    its first dataset. Needs ``h5py``."""
+    try:
+        h5py = need_h5py(path)
+    except RuntimeError:
+        raise RuntimeError(
+            f"{path}: NTCD's lip videos are matlab v7.3 (HDF5) files and need h5py, which "
+            "this machine lacks; run create_video_train_files --format npz on a host that "
+            "has it and copy the processed tree") from None
+    with h5py.File(path, "r") as f:
+        return np.array(f[next(iter(f.keys()))])
+
+
+def build_video_files(input_dir, output_dir, dataset_types=("train", "validation", "test"),
+                      labels: str = "vad_labels", width: int = 67, height: int = 67,
+                      workers=None, fmt: str = "h5", device=None):
+    """The lip-video training files (port of
+    ``dvae_tpu.data.builders.build_video_files``,
+    create_video_train_files.py): for each split of ``input_dir`` (the raw
+    tree), each lip ``.mat`` and its clean utterance go through
+    :func:`build_video` on ``device`` (CUDA unless ``device="cpu"``) and
+    :func:`write_video`, over ``workers`` threads; the train split's pixels
+    give ``X_train_mean`` / ``X_train_std`` (:func:`save_video_statistics`),
+    summed in float64 (the JAX builder sums the pixels in float32).
+    ``fmt="h5"`` writes the JAX builder's files with ``h5py``; ``fmt="npz"``
+    the same arrays without it. Reading the ``.mat`` files needs ``h5py``
+    either way. Returns the statistics file's path, or None when the train
+    split has no video."""
+    _check_format(fmt)
+    _check_labels(labels)
+    input_dir, output_dir = str(input_dir), str(output_dir)
+    if fmt == "h5":
+        need_h5py(output_dir)
+    dev = resolve_device(device)
+    n, s_sum, sq_sum = 0, 0.0, 0.0
+    for split in dataset_types:
+        mats = ntcd_timit.video_list(input_dir + "/", split)
+        clean_in, _ = ntcd_timit.speech_list(input_dir + "/", split)
+
+        def process(pair):
+            mat_rel, clean_rel = pair
+            speech, _ = read_wav(os.path.join(input_dir, clean_rel))
+            video = build_video(_read_mat_frames(os.path.join(input_dir, mat_rel)), speech,
+                                labels, width, height, dev)
+            write_video(output_dir, mat_rel, labels, video, fmt)
+            return video.x
+
+        with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+            for x in ex.map(process, zip(mats, clean_in)):
+                if split == "train":
+                    x64 = x.astype(np.float64)
+                    n += x64.size
+                    s_sum += float(x64.sum())
+                    sq_sum += float((x64 * x64).sum())
+    return save_video_statistics(output_dir, n, s_sum, sq_sum, fmt) if n else None
 
 
 def copy_ntcd_noisy_test(input_dir, output_dir, dataset_type: str = "test",

@@ -15,9 +15,9 @@
   narrows to ['Babble','LR'] x ['-5'] (:354-359).
 
 All returned paths are relative to the given input dir, like the reference.
-A per-utterance label file is the JAX builder's ``.h5`` or the ``.npz`` of
-the same array (``data/io.py``); the label walks take either, one entry per
-utterance, the ``.h5`` where both exist.
+A per-utterance label file or lip video is the JAX builder's ``.h5`` or the
+``.npz`` of the same array (``data/io.py``); the walks over them take
+either, one entry per utterance, the ``.h5`` where both exist.
 """
 
 from __future__ import annotations
@@ -94,12 +94,19 @@ def speech_list(input_speech_dir, dataset_type="train"):
 def proc_video_audio_pair_dict(input_video_dir, dataset_type="train",
                                labels="vad_labels", upsampled=False,
                                dct=False, norm_video=False):
-    """(video h5 paths, audio label h5 paths) for a split (ntcd_timit.py:149-191)."""
+    """(video h5 paths, audio label h5 paths) for a split (ntcd_timit.py:149-191).
+
+    With ``upsampled``, the builder's lip videos ``<utt>_upsampled.h5`` or
+    ``.npz`` and the label files ``<utt>_<labels>.h5`` or ``.npz``, one entry
+    per utterance each (the ``.h5`` where both exist, in the JAX catalog's
+    order); otherwise ``.h5`` files alone, as in the JAX catalog."""
     video_dir = os.path.join(input_video_dir, "ntcd_timit/matlab_raw", _split(dataset_type))
     audio_dir = os.path.join(input_video_dir, "ntcd_timit/Clean", _split(dataset_type))
+    rel = lambda ps: [os.path.relpath(p, input_video_dir) for p in ps]
     if upsampled:
-        pattern = "**/*_upsampled.h5"
-    elif dct:
+        return (rel(_label_files(video_dir, "_upsampled")),
+                rel(_label_files(audio_dir, f"_{labels}")))
+    if dct:
         pattern = "**/*_dct.h5"
     elif norm_video:
         pattern = "**/*_normvideo.h5"
@@ -109,7 +116,6 @@ def proc_video_audio_pair_dict(input_video_dir, dataset_type="train",
     if pattern == "**/*.h5":  # plain: exclude all derived variants
         video = [v for v in video if not any(s in v for s in ("_upsampled", "_dct", "_normvideo"))]
     audio = sorted(glob(os.path.join(audio_dir, f"**/*_{labels}.h5"), recursive=True))
-    rel = lambda ps: [os.path.relpath(p, input_video_dir) for p in ps]
     return rel(video), rel(audio)
 
 
@@ -155,10 +161,10 @@ def noisy_clean_pair_dict(input_speech_dir, dataset_type="train", dataset_size="
 
 
 def _label_files(clean_dir: str, suffix: str) -> list[str]:
-    """The label files ``*<suffix>.h5`` / ``*<suffix>.npz`` under
-    ``clean_dir``, one per utterance (the ``.h5`` where both exist), sorted
-    by their paths without the extension: for a tree of ``.h5`` files alone,
-    the JAX catalog's sorted glob."""
+    """The per-utterance files (labels or lip videos) ``*<suffix>.h5`` /
+    ``*<suffix>.npz`` under ``clean_dir``, one per utterance (the ``.h5``
+    where both exist), sorted by their paths without the extension: for a
+    tree of ``.h5`` files alone, the JAX catalog's sorted glob."""
     found = {}
     for ext in reversed(ARRAY_SUFFIXES):  # the .h5 last, so that it wins
         for p in glob(os.path.join(clean_dir, f"**/*{suffix}{ext}"), recursive=True):

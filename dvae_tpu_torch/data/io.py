@@ -149,20 +149,28 @@ def _npz_shape(path, name: str) -> tuple:
         return read(fh)[0]
 
 
+def array_file(path):
+    """The file that ``path`` names with either suffix: the ``.h5`` where it
+    exists, else the ``.npz``; None where neither does."""
+    base = os.path.splitext(str(path))[0]
+    for ext in ARRAY_SUFFIXES:
+        if os.path.exists(base + ext):
+            return base + ext
+    return None
+
+
 def video_frames(path, legacy: bool = False):
     """Frames of the processed lip video ``<utt>_upsampled.h5`` or
     ``<utt>_upsampled.npz`` (``X``, (H, W, frames)) that ``path`` names with
-    either suffix: the ``.h5`` where it exists, else the ``.npz``; None
-    where neither does. ``legacy`` takes ``shape[0]``, the image height, as
-    the reference's frame-set builder does (create_train_set.py:181-186)."""
-    base = os.path.splitext(str(path))[0]
-    for ext in ARRAY_SUFFIXES:
-        p = base + ext
-        if os.path.exists(p):
-            if ext == ".h5":
-                with need_h5py(p).File(p, "r") as f:
-                    shape = f["X"].shape
-            else:
-                shape = _npz_shape(p, "X")
-            return int(shape[0] if legacy else shape[-1])
-    return None
+    either suffix (:func:`array_file`); None where neither exists.
+    ``legacy`` takes ``shape[0]``, the image height, as the reference's
+    frame-set builder does (create_train_set.py:181-186)."""
+    p = array_file(path)
+    if p is None:
+        return None
+    if p.endswith(".h5"):
+        with need_h5py(p).File(p, "r") as f:
+            shape = f["X"].shape
+    else:
+        shape = _npz_shape(p, "X")
+    return int(shape[0] if legacy else shape[-1])

@@ -19,23 +19,29 @@ import torch
 from torch import nn
 
 
+def init_lstm_head(lstm: nn.LSTM, head: nn.Linear, generator=None) -> None:
+    """torch's default LSTM init and a Xavier-normal head with a zero bias,
+    drawn from ``generator`` when given; ``bias_ih`` zero and frozen either
+    way."""
+    if generator is not None:
+        bound = lstm.hidden_size ** -0.5
+        for p in lstm.parameters():
+            nn.init.uniform_(p, -bound, bound, generator=generator)
+        nn.init.xavier_normal_(head.weight, generator=generator)
+        nn.init.zeros_(head.bias)
+    for i in range(lstm.num_layers):
+        b = getattr(lstm, f"bias_ih_l{i}")
+        nn.init.zeros_(b)
+        b.requires_grad_(False)
+
+
 class LSTMVad(nn.Module):
     def __init__(self, x_dim: int = 513, hidden: int = 1024, num_layers: int = 2,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.lstm = nn.LSTM(x_dim, hidden, num_layers, batch_first=True)
         self.head = nn.Linear(hidden, 1)
-        if generator is not None:
-            # torch's own default init, drawn from the given generator
-            bound = hidden ** -0.5
-            for p in self.lstm.parameters():
-                nn.init.uniform_(p, -bound, bound, generator=generator)
-            nn.init.xavier_normal_(self.head.weight, generator=generator)
-            nn.init.zeros_(self.head.bias)
-        for i in range(num_layers):
-            b = getattr(self.lstm, f"bias_ih_l{i}")
-            nn.init.zeros_(b)
-            b.requires_grad_(False)
+        init_lstm_head(self.lstm, self.head, generator)
 
     def forward(self, x):
         """x: (batch, time, x_dim) -> per-frame VAD probability (batch, time)."""

@@ -29,13 +29,15 @@ from dvae_tpu_torch.train.steps import _normalizer
 
 
 def _seq_normalizer(norm, eps, device=None) -> Callable:
-    """``steps._normalizer`` for the audio net's plain (mean, std) pair. The
-    per-component tuples of the audio-visual net are not ported yet."""
+    """``steps._normalizer`` extended to tuple inputs. ``norm`` is None,
+    one (mean, std) pair for a tensor input, or a tuple of per-component
+    pairs or Nones for a tuple input, e.g. ``((audio_mean, audio_std),
+    (pixel_mean, pixel_std))`` for ``AVVad``'s (audio, video); a (1, 1)
+    pixel statistic broadcasts over (B, T, H, W)."""
     if (norm is not None and isinstance(norm, tuple)
             and all(n is None or isinstance(n, tuple) for n in norm)):
-        raise NotImplementedError(
-            "per-component normalization of tuple inputs (the AV classifier) "
-            "is not ported yet (ROADMAP A12)")
+        fns = [_normalizer(n, eps, device) for n in norm]
+        return lambda xs: tuple(f(x) for f, x in zip(fns, xs, strict=True))
     return _normalizer(norm, eps, device)
 
 
@@ -56,8 +58,9 @@ def make_lstm_vad_step(model, opt: torch.optim.Optimizer, eps: float = 1e-8,
                        norm=None) -> Callable:
     """``step(x (B, T, F), y (B, T), mask (B, T)) -> metrics``: one Adam
     update on the masked BCE. ``norm``: the optional (mean, std) train
-    statistics of the noisy log-power spectrogram; the LSTM sees
-    (x - mean) / (std + eps)."""
+    statistics of the input; the model sees (x - mean) / (std + eps).
+    ``x`` may be a tuple (the AV model), and ``norm`` then has the tuple
+    form of :func:`_seq_normalizer`."""
     normalize = _seq_normalizer(norm, eps, next(model.parameters()).device)
 
     def step(x, y, mask):
@@ -73,7 +76,8 @@ def make_lstm_vad_step(model, opt: torch.optim.Optimizer, eps: float = 1e-8,
 
 
 def make_lstm_vad_eval(model, eps: float = 1e-8, norm=None) -> Callable:
-    """``evaluate(x, y, mask) -> metrics``, without an update."""
+    """``evaluate(x, y, mask) -> metrics``, without an update; ``x`` and
+    ``norm`` as in :func:`make_lstm_vad_step`."""
     normalize = _seq_normalizer(norm, eps, next(model.parameters()).device)
 
     @torch.no_grad()
@@ -86,7 +90,8 @@ def make_lstm_vad_eval(model, eps: float = 1e-8, norm=None) -> Callable:
 
 
 def make_lstm_vad_predict(model, eps: float = 1e-8, norm=None) -> Callable:
-    """``predict(x (B, T, F)) -> p (B, T)``, the frame-VAD posterior."""
+    """``predict(x (B, T, F)) -> p (B, T)``, the frame-VAD posterior; ``x``
+    and ``norm`` as in :func:`make_lstm_vad_step`."""
     normalize = _seq_normalizer(norm, eps, next(model.parameters()).device)
 
     @torch.no_grad()
@@ -122,7 +127,7 @@ def pad_utterances(ds, indices, stft_cfg: StftConfig, pad_to_multiple: int = 64)
     # outer max: labels trimmed to zero frames still occupy one (masked) row
     frames = [max(1, min(n_stft_frames_clamped(len(w), stft_cfg), len(l)))
               for w, l in zip(wavs, labels)]
-    n_max = -(-max(frames) // pad_to_multiple) * pad_to_multiple
+    n_max = _bucket(frames, pad_to_multiple)
     t_pad = samples_for_frames(n_max, stft_cfg)
 
     xb = np.zeros((len(wavs), t_pad), np.float32)
@@ -141,6 +146,88 @@ def pad_utterances(ds, indices, stft_cfg: StftConfig, pad_to_multiple: int = 64)
     return xb, yb, mb
 
 
+def _bucket(frames, pad_to_multiple: int) -> int:
+    return -(-max(frames) // pad_to_multiple) * pad_to_multiple
+
+
+def pad_video_utterances(ds, indices, pad_to_multiple: int = 64):
+    """The host half of :func:`batch_video_utterances`: (B, T, H, W) video,
+    (B, T) labels and (B, T) mask as float32 numpy arrays, zero-padded to a
+    multiple of ``pad_to_multiple`` frames."""
+    vids, labels = [], []
+    for i in indices:
+        v, y = ds[i]
+        vids.append(np.asarray(v, np.float32))
+        labels.append(np.asarray(y, np.float32).reshape(-1))
+    frames = [max(1, min(len(v), len(l))) for v, l in zip(vids, labels)]
+    n_max = _bucket(frames, pad_to_multiple)
+    vb = np.zeros((len(vids), n_max) + vids[0].shape[1:], np.float32)
+    yb = np.zeros((len(vids), n_max), np.float32)
+    mb = np.zeros((len(vids), n_max), np.float32)
+    for j, (v, l, n) in enumerate(zip(vids, labels, frames)):
+        n_lab = min(n, len(l), len(v))
+        vb[j, :n_lab] = v[:n_lab]
+        yb[j, :n_lab] = l[:n_lab]
+        mb[j, :n_lab] = 1.0
+    return vb, yb, mb
+
+
+def batch_video_utterances(ds, indices, pad_to_multiple: int = 64, device=None):
+    """(v (B, T, H, W), y (B, T), mask (B, T)) on ``device`` (CUDA unless
+    ``device="cpu"``) from a :class:`~dvae_tpu_torch.data.av_dataset.
+    VideoDataset` or any sequence of (video, labels) pairs."""
+    dev = resolve_device(device)
+    return tuple(torch.from_numpy(a).to(dev) for a in
+                 pad_video_utterances(ds, indices, pad_to_multiple))
+
+
+def pad_av_utterances(ds, indices, stft_cfg: StftConfig, pad_to_multiple: int = 64):
+    """The host half of :func:`batch_av_utterances`: the (B, T_pad)
+    waveforms, (B, T, H, W) video, (B, T) labels and (B, T) mask as float32
+    numpy arrays; T is each utterance's frames clamped to its audio's and
+    bucketed up to a multiple of ``pad_to_multiple``."""
+    wavs, vids, labels = [], [], []
+    for i in indices:
+        w, v, y = ds[i]
+        if y is None:
+            raise ValueError("AV training batches need labeled triples")
+        wavs.append(w)
+        vids.append(np.asarray(v, np.float32))
+        labels.append(np.asarray(y, np.float32).reshape(-1))
+    # the dataset trimmed video and labels to the common count already;
+    # clamp to the audio's frames too (their count depends on the STFT flags)
+    frames = [max(1, min(n_stft_frames_clamped(len(w), stft_cfg), len(v), len(l)))
+              for w, v, l in zip(wavs, vids, labels)]
+    n_max = _bucket(frames, pad_to_multiple)
+    t_pad = samples_for_frames(n_max, stft_cfg)
+    xb = np.zeros((len(wavs), t_pad), np.float32)
+    vb = np.zeros((len(wavs), n_max) + vids[0].shape[1:], np.float32)
+    yb = np.zeros((len(wavs), n_max), np.float32)
+    mb = np.zeros((len(wavs), n_max), np.float32)
+    for j, (w, v, l, n) in enumerate(zip(wavs, vids, labels, frames)):
+        t_use = min(len(w), t_pad)
+        xb[j, :t_use] = w[:t_use]
+        vb[j, :n] = v[:n]
+        yb[j, :n] = l[:n]
+        mb[j, :n] = 1.0
+    return xb, vb, yb, mb
+
+
+def batch_av_utterances(ds, indices, stft_cfg: StftConfig, pad_to_multiple: int = 64,
+                        device=None):
+    """((spec (B, T, F), v (B, T, H, W)), y (B, T), mask (B, T)) on
+    ``device`` (CUDA unless ``device="cpu"``) from an
+    :class:`~dvae_tpu_torch.data.av_dataset.AudioVisualDataset` or any
+    sequence of labelled (wav, video, labels) triples: the input of
+    ``AVVad``. The log-power spectrogram is one launch of the STFT power
+    kernel on the card."""
+    dev = resolve_device(device)
+    xb, vb, yb, mb = pad_av_utterances(ds, indices, stft_cfg, pad_to_multiple)
+    spec = log_power_spectrogram(torch.from_numpy(xb).to(dev), stft_cfg)[:, :yb.shape[1]]
+    return ((spec.contiguous(), torch.from_numpy(vb).to(dev)), torch.from_numpy(yb).to(dev),
+            torch.from_numpy(mb).to(dev))
+
+
 def fit_sequence(model, opt, step, evaluate, train_ds, valid_ds, batcher, model_dir, *,
                  prefix: str, seed: int = 0, start_epoch: int = 1, end_epoch: int = 500,
                  batch_size: int = 16, mesh=None, log=print) -> list:
@@ -148,7 +235,8 @@ def fit_sequence(model, opt, step, evaluate, train_ds, valid_ds, batcher, model_
     ``np.random.default_rng((seed, epoch))`` (a resumed run replays the
     uninterrupted one), weights and Adam state resumed from epoch
     ``start_epoch - 1``, a validation pass, and one checkpoint per epoch
-    named by the validation BCE. ``batcher(ds, indices) -> (x, y, mask)``;
+    named by the validation BCE. ``batcher(ds, indices) -> (x, y, mask)``,
+    ``x`` a tuple for the AV model;
     ``step`` / ``evaluate`` come from :func:`make_lstm_vad_step` /
     :func:`make_lstm_vad_eval` over ``model`` and ``opt``. Returns the
     per-epoch history."""

@@ -8,7 +8,9 @@ of the subset grid (Babble and LR at -5 dB) under ``Noisy/``; with
 the sweep trims) under ``matlab_raw/test/<spk>/``. Returns the utterances
 as ``{(spk, utt): n_samples}``. ``make_raw_tree(raw)`` writes a raw tree
 for the builders (clean wavs, ``.mat`` placeholders, optionally raw noisy
-mixtures), ``write_videos(proc)`` processed lip videos, ``.h5`` or ``.npz``.
+mixtures), ``write_videos(proc)`` processed lip videos, ``.h5`` or ``.npz``,
+and ``write_lip_mats(raw)`` the raw tree's lip videos as matlab v7.3-style
+``.mat`` files (HDF5, written with h5py) of DCT frames.
 """
 
 import numpy as np
@@ -111,3 +113,26 @@ def write_videos(proc, videos=RAW_VIDEOS, fmt="h5"):
 
         with h5py.File(path, "w") as f:
             f["X"] = np.zeros(shape, np.float32)
+
+
+def write_lip_mats(raw, utts=RAW_UTTS, seed=0, side=67):
+    """Replace each placeholder ``.mat`` of ``make_raw_tree(raw, utts=utts)``
+    by a matlab v7.3-style file, HDF5 with one dataset: (frames, side *
+    side) DCT coefficients at 30 fps for the utterance's duration, large at
+    low orders and decaying with the order, their lowest coefficient
+    following the utterance's bursts. Returns {(split, spk, utt): frames}."""
+    import h5py
+
+    rng = np.random.default_rng(seed)
+    decay = np.exp(-np.add.outer(np.arange(side), np.arange(side)) / 8.0).ravel()
+    frames = {}
+    for split, entries in utts.items():
+        for (spk, utt), n in entries.items():
+            count = int(np.ceil(n / 16000 * 30))
+            dct = rng.standard_normal((count, side * side)) * decay * 300.0
+            dct[:, 0] += 2000.0 * ((np.arange(count) / 30.0) % 0.4 < 0.25)
+            mat = raw / "ntcd_timit" / "matlab_raw" / SPLIT_DIRS[split] / spk / f"{utt}.mat"
+            with h5py.File(mat, "w") as f:
+                f["dctFeat"] = dct
+            frames[split, spk, utt] = count
+    return frames

@@ -44,6 +44,7 @@ from dvae_tpu_torch.cli import (
     evaluate_ntcd_m2,
     predict_vad_labels,
     train_audio_net,
+    train_video_net,
 )
 from dvae_tpu_torch.data import builders as tbuilders
 from dvae_tpu_torch.data.io import read_labels
@@ -289,11 +290,11 @@ def test_train_audio_net_exits_without_utterances(monkeypatch, capsys, jax_cache
 @pytest.mark.parametrize("script,argv,said", [
     ("train_audio_net", ["--data-parallel"], "ROADMAP A14"),
     ("train_audio_net", ["--multihost"], "ROADMAP A14"),
-    ("predict_vad_labels", ["--checkpoint", "x", "--modality", "video"], "ROADMAP A13.3"),
-    ("predict_vad_labels", ["--checkpoint", "x", "--modality", "av"], "ROADMAP A13.3"),
+    ("train_video_net", ["--data-parallel"], "ROADMAP A14"),
+    ("train_video_net", ["--multihost"], "ROADMAP A14"),
 ])
 def test_vad_clis_refuse_what_is_not_ported(tmp_path, capsys, script, argv, said):
-    port = {"train_audio_net": train_audio_net, "predict_vad_labels": predict_vad_labels}[script]
+    port = {"train_audio_net": train_audio_net, "train_video_net": train_video_net}[script]
     with pytest.raises(SystemExit) as exc:
         port.main(["--data-root", str(tmp_path), "--platform", "cpu", *argv])
     assert exc.value.code == 2 and said in capsys.readouterr().err

@@ -878,3 +878,68 @@ def test_cuda_predict_batch_matches_plain(cuda):
     pk = make_lstm_vad_predict(model.to(cuda))(xk).cpu()
     pp = make_lstm_vad_predict(model.cpu())(xp)
     np.testing.assert_allclose(pk.numpy(), pp.numpy(), atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labels", ["vad_labels", "ibm_labels"])
+def test_cuda_build_video_matches_cpu(cuda, labels):
+    """The video builder's per-utterance core on the card against the CPU:
+    the IDCT-preprocessed, upsampled pixels within 1e-3 on the 0-255 scale;
+    VAD labels exactly, with no STFT power launch; IBM labels through one
+    launch, on all but 1e-4 of the bins (a bin within rounding of peak - 50
+    dB may flip)."""
+    from dvae_tpu_torch.data.builders import build_video
+
+    rng = np.random.default_rng(6)
+    decay = np.exp(-np.add.outer(np.arange(67), np.arange(67)) / 8.0).ravel()
+    dct = rng.standard_normal((40, 67 * 67)) * decay * 300.0
+    t = np.arange(21000) / 16000
+    speech = np.sin(2 * np.pi * 170 * t) * (t % 0.4 < 0.25) + 0.01 * rng.standard_normal(len(t))
+    before = stft_power.launches
+    vk = build_video(dct, speech, labels, device=cuda)
+    assert stft_power.launches - before == (labels == "ibm_labels")
+    vp = build_video(dct, speech, labels, device="cpu")
+    assert vk.x.shape == vp.x.shape and vk.x.shape[:2] == (67, 67)
+    assert vk.x.shape[-1] == vk.y.shape[-1]
+    np.testing.assert_allclose(vk.x, vp.x, rtol=0, atol=1e-3)
+    if labels == "vad_labels":
+        np.testing.assert_array_equal(vk.y, vp.y)
+    else:
+        assert float((vk.y != vp.y).mean()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_av_batch_and_models_match_cpu(cuda):
+    """An AV batch (``batch_av_utterances``, one STFT power launch) on the
+    card against the CPU's, then ``VideoVad`` and ``AVVad`` at full width
+    (hidden 512, emb_dim 128, two layers; cuDNN convs and LSTM in f32)
+    over both: the posteriors at atol 1e-4."""
+    from dvae_tpu_torch.models import AVVad, VideoVad
+    from dvae_tpu_torch.train.sequence import batch_av_utterances, make_lstm_vad_predict
+
+    rng = np.random.default_rng(8)
+    ds = []
+    for n in (12000, 17600, 9600):
+        t = np.arange(n) / 16000
+        x = np.sin(2 * np.pi * 180 * t) * (t % 0.5 < 0.3) + 0.05 * rng.standard_normal(n)
+        frames = n // 256 + 1
+        ds.append(((x / np.abs(x).max()).astype(np.float32),
+                   (255 * rng.random((frames - 2, 67, 67))).astype(np.float32),
+                   (rng.uniform(size=(frames - 2, 1)) > 0.5).astype(np.float32)))
+    cfg = StftConfig(center=True)
+    before = stft_power.launches
+    (sk, vk), yk, mk = batch_av_utterances(ds, range(len(ds)), cfg, device=cuda)
+    assert stft_power.launches - before == 1
+    (sp, vp), yp, mp = batch_av_utterances(ds, range(len(ds)), cfg, device="cpu")
+    assert torch.equal(vk.cpu(), vp) and torch.equal(yk.cpu(), yp) and torch.equal(mk.cpu(), mp)
+    big = sp.exp() > 1e-6 * sp.exp().amax()
+    assert float((sk.cpu() - sp)[big].abs().max()) < 1e-3
+    pixel = (np.float32([[120.0]]), np.float32([[60.0]]))
+    audio = (sp.mean((0, 1)).numpy()[:, None], sp.std((0, 1)).numpy()[:, None] + 1.0)
+    for model, xk, xp, norm in [(VideoVad(generator=torch.Generator().manual_seed(0)), vk, vp,
+                                 pixel),
+                                (AVVad(generator=torch.Generator().manual_seed(0)), (sp.to(cuda),
+                                 vk), (sp, vp), (audio, pixel))]:
+        pk = make_lstm_vad_predict(model.to(cuda), norm=norm)(xk).cpu()
+        pp = make_lstm_vad_predict(model.cpu(), norm=norm)(xp)
+        np.testing.assert_allclose(pk.numpy(), pp.numpy(), atol=1e-4, rtol=0)
