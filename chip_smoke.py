@@ -181,7 +181,28 @@ Phases, in order; any failure exits non-zero:
    (posteriors within 1e-4); then B2 held against its plain version and
    timed at an AV train batch, B1 at the sweep's first batch, the
    full-width ``VideoVad`` / ``AVVad`` train step, predict batch and
-   batcher, and each CLI's wall, each with the card's name and power limit.
+   batcher, and each CLI's wall, each with the card's name and power limit;
+16. scoring and reconstruction on phase 14's tree and the outputs of phases
+   14 and 15: the reconstruction engine (``eval/reconstruct.py``) for phase
+   13's CLI-trained M1 and M2-info and phase 12's M2 VAD prior on 8 test
+   pairs, with the oracle and phase 14's classifier labels (2 STFT power
+   launches per pair, the power within 1e-4 of the plain power relative to
+   each frame's peak; the card's reconstructions with injected noise within
+   1e-4 of the CPU's; the M2-info probe's classifiers finite); the six
+   ``reconstruct_*`` CLIs at ``--max-utts 4`` on that tree and on a QUT tree
+   from ``create_test_set`` (as processes, each figure set per utterance,
+   where matplotlib imports; else a process must exit naming matplotlib,
+   and the CLIs run in process with the figure writer recording the names
+   and rows, nothing rendered); ``run_metrics`` on phase 14's and 15's
+   ``evaluate_ntcd_m2`` outputs with ``--classifier-dir`` and
+   ``--score-input``, ``run_metrics_classif`` on the audio, video and AV
+   labels, as processes side by side (finite SI-SDR, ESTOI and PESQ means,
+   printed without a limit; the in-sweep F1 columns equal to
+   ``run_metrics_classif``'s over the same hard labels; the video labels'
+   pooled F1 equal to ``predict_vad_labels``' ``vs oracle:`` line); then
+   the scorers' host time per utterance and B2 at one utterance against
+   its plain version, ``torch.stft`` and its bound, each with the card's
+   name and power limit.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -2011,12 +2032,14 @@ def kstep_profile(kind: str, k: int, npz: str) -> int:
     return 0
 
 
-def cli_chain_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str) -> list:
+def cli_chain_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str, keep: str) -> tuple:
     """Phase 13 on the card: the reference's CLI chain at full width, from a
     raw tree through ``create_train_set`` (B2) and the five trainer CLIs
     (K = 8) to serving two CLI-trained priors (B1); then the K-step graph
     against eager K steps, the K-step times and idle shares. Returns the
-    kernels-line entries of this path."""
+    kernels-line entries of this path and {"m1", "m2_info": the best
+    ``.pt`` of the CLI-trained M1 and M2-info, copied to ``keep`` for phase
+    16}."""
     import torch
 
     from dvae_tpu_torch.data.builders import build_frames, padded_batch
@@ -2261,7 +2284,11 @@ def cli_chain_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str) -> list:
     stft_entry = time_stft(chunk_xp, False, "create_train_set chunk", n_b2, cuda_ms, tag,
                            phase=13)
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all")
-    return [chain_entry("mh_chain (CLI-trained priors)", b1_v5 + b1_m2, seg), stft_entry]
+    kept = {"m1": os.path.join(keep, "cli_m1.pt"), "m2_info": os.path.join(keep, "cli_m2_info.pt")}
+    shutil.copyfile(ckpt.best_checkpoint(os.path.join(models, runs["training_m1"][1]), "M1"),
+                    kept["m1"])
+    shutil.copyfile(info_best, kept["m2_info"])
+    return [chain_entry("mh_chain (CLI-trained priors)", b1_v5 + b1_m2, seg), stft_entry], kept
 
 
 AUDIO_TEST_UTTS, AUDIO_EPOCHS, AUDIO_CHUNK = 16, 3, 64
@@ -2311,14 +2338,15 @@ def sequence_metrics(stdout: str) -> tuple:
             [parse(x) for x in lines if x.startswith("  valid: ")])
 
 
-def audio_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str) -> list:
+def audio_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str, said_f1: dict) -> list:
     """Phase 14 on the card: the audio-VAD CLI chain at full width, from a
     raw tree through ``create_audio_train_set --format npz`` (B2),
     ``train_audio_net`` (``LSTMVad(513, 1024, 2)``, B2 per batch) and
     ``predict_vad_labels`` (B2 per batch) to ``evaluate_ntcd_m2`` on the
     classifier's and the oracle's labels (B1), every label file and
     statistic an ``.npz``; then the kernels at this path's launches and the
-    times. Returns the kernels-line entries of this path."""
+    times. Returns the kernels-line entries of this path; ``said_f1["audio"]``
+    is predict_vad_labels' ``vs oracle:`` line, for phase 16."""
     import torch
 
     from dvae_tpu_torch.cli import evaluate_ntcd_m2, predict_vad_labels
@@ -2452,6 +2480,7 @@ def audio_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str) -> list:
                       and np.array_equal(hard, (soft > 0.5).astype(np.float32)))
     check(frames_ok == len(pairs) == n_mix["test"],
           f"{frames_ok} of {len(pairs)} predictions with the oracle's frames")
+    said_f1["audio"] = said[0]
     n_again = predict_vad_labels.main(argv)
     check(n_again == 0, f"a rerun predicted {n_again}")
     log(f"phase 14: predict_vad_labels --snr all in {walls['predict_vad_labels']:.1f} s (a "
@@ -2585,7 +2614,7 @@ def lip_dct_frames(clean: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     return dct.reshape(n, side * side)
 
 
-def video_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str) -> list:
+def video_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str, said_f1: dict) -> list:
     """Phase 15 on the card: the lip-video and audio-visual VAD chain at
     full width on phase 14's tree (``work``): synthetic DCT lip frames per
     utterance through the video builder's per-utterance core (the IDCT on
@@ -2594,7 +2623,9 @@ def video_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str) -> list:
     (B2 per AV batch); ``predict_vad_labels --modality video`` and ``av``;
     ``evaluate_ntcd_m2 --y-source classifier`` on the video net's labels
     (B1); then the card's models against the CPU's, the kernels at this
-    path's launches and the times. Returns the kernels-line entries."""
+    path's launches and the times. Returns the kernels-line entries;
+    ``said_f1["video"]`` and ``["av"]`` are predict_vad_labels' ``vs
+    oracle:`` lines, for phase 16."""
     import torch
 
     from dvae_tpu_torch.cli import evaluate_ntcd_m2
@@ -2771,6 +2802,7 @@ def video_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str) -> list:
             ok += (len(hard) == len(soft) and frames_ok
                    and np.array_equal(hard, (soft > 0.5).astype(np.float32)))
         check(ok == len(stems) == n_items, f"{modality}: {ok} of {len(stems)} predictions")
+        said_f1[modality] = said[0]
         log(f"phase 15: predict_vad_labels --modality {modality} in {wall:.1f} s (a process of "
             f"its own, side by side with the other): {n_items} "
             f"{'mixtures' if modality == 'av' else 'utterances, the clean layout'}, a hard and "
@@ -2899,6 +2931,309 @@ def video_vad_phase(m2_vad: str, cuda_ms, agree, tag: str, work: str) -> list:
     log(f"phase 15: walls {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}; "
         f"{time.perf_counter() - t_phase:.1f} s in all {tag}")
     return [chain_entry("mh_chain (M2 VAD sweep on video-net labels)", n_b1, seg), b2_av]
+
+
+RECON_PAIRS, RECON_CLI_UTTS = 8, 4
+QUT_NOISES = ("cafe", "home", "street", "car")
+# each model's figure set, and the reconstruct CLIs: (module, model, extra flags)
+FIGURES = {"m1": ("_s_recon.png", "_x_recon.png"),
+           "m2": ("_s_recon.png", "_x_recon.png", "_x_recon_ones.png", "_x_recon_zeros.png"),
+           "m2_info": ("_s_recon.png", "_x_recon.png", "_x_recon_soft.png", "_x_recon_ones.png",
+                       "_x_recon_zeros.png", "_recon_aux.png")}
+RECON_CLIS = (("reconstruct_ntcd_m1", "m1", False), ("reconstruct_ntcd_m2", "m2", True),
+              ("reconstruct_ntcd_m2_info", "m2_info", False), ("reconstruct_m1", "m1", False),
+              ("reconstruct_m2", "m2", False), ("reconstruct_m2_info", "m2_info", False))
+F1_KEYS = ("accuracy", "precision", "recall", "f1")
+
+
+def frame_peak_err(got, want) -> float:
+    """Largest |got - want| over each frame's peak |want|."""
+    peak = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return float(((got - want).abs() / peak).max())
+
+
+def f1_numbers(line: str) -> dict:
+    """The ``name=value`` pairs of a ``vs oracle:`` / ``pooled over ...:`` line."""
+    return dict(kv.split("=") for kv in line.split(":", 1)[1].split())
+
+
+def scoring_phase(kept: dict, said_f1: dict, cuda_ms, tag: str, work: str) -> list:
+    """Phase 16 on the card: scoring and reconstruction on phase 14's tree
+    and the outputs of phases 14 and 15 (``work``): the reconstruction
+    engine for the models of ``kept`` on test pairs (B2 for each signal's
+    power, held against the plain power; the card against the CPU with
+    injected noise); the six reconstruct CLIs (processes where matplotlib
+    imports, else in process with the figure writer recording);
+    ``run_metrics`` and ``run_metrics_classif`` as processes; the scorers'
+    host times and B2 at one utterance. Returns the kernels-line entry."""
+    import copy
+    import importlib
+    import importlib.util
+    import io
+
+    import torch
+
+    from dvae_tpu_torch import viz
+    from dvae_tpu_torch.cli import create_test_set
+    from dvae_tpu_torch.data.catalog import ntcd_timit
+    from dvae_tpu_torch.data.io import read_wav, write_wav
+    from dvae_tpu_torch.enhance.evaluate import find_classifier_labels, load_oracle_labels
+    from dvae_tpu_torch.eval import reconstruct as rec
+    from dvae_tpu_torch.eval.pesq import pesq_wheel_available
+    from dvae_tpu_torch.eval.pesq_native import pesq_wb
+    from dvae_tpu_torch.eval.stoi import stoi
+    from dvae_tpu_torch.models import CVAE, VAE, DisentangledVAE
+    from dvae_tpu_torch.ops import stft_power
+    from dvae_tpu_torch.ops.stft import StftConfig, pad_signal
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    data = os.path.join(work, "data")
+    proc = os.path.join(data, "subset", "processed")
+    preds = {"audio": os.path.join(work, "preds"), "video": os.path.join(work, "preds_video"),
+             "av": os.path.join(work, "preds_av")}
+    cfg = StftConfig()
+    walls = {}
+    all_pairs = list(ntcd_timit.proc_noisy_clean_pair_dict(proc + "/", "test", "subset",
+                                                           "vad_labels", True).items())
+    pairs = all_pairs[:RECON_PAIRS]
+
+    # ---- 16a. the reconstruction engine on the card, against the CPU
+    on_cpu = {"m1": VAE(513, 16, (128, 128)), "m2": CVAE(513, 1, 16, (128, 128)),
+              "m2_info": DisentangledVAE(513, 1, 16, (128, 128))}
+    for name, model in on_cpu.items():
+        model.load_state_dict(torch.load(kept[name], map_location="cpu", weights_only=True))
+    models = {name: copy.deepcopy(m).to(dev) for name, m in on_cpu.items()}
+    rng = np.random.default_rng(SEED + 16)
+    stft_power.launches = 0
+    x2_err, rec_err, probe_err, n_rec, probe_ok = 0.0, 0.0, 0.0, 0, True
+    t0 = time.perf_counter()
+    for noisy_rel, clean_rel in pairs:
+        power = {}
+        for key, path in zip("sx", rec.ntcd_pair_wavs(proc, noisy_rel, clean_rel)):
+            w = read_wav(path)[0]
+            power[key] = rec.power_spec(w, cfg, device=dev)[1]
+            plain = stft_power.stft_power_reference(
+                torch.as_tensor(w.astype(np.float32), device=dev), cfg)
+            x2_err = max(x2_err, frame_peak_err(power[key], plain))
+        utt = os.path.splitext(os.path.basename(noisy_rel))[0]
+        ys = [load_oracle_labels(os.path.join(proc, clean_rel)),
+              find_classifier_labels(preds["audio"], noisy_rel.split("/")[-2], utt, 1,
+                                     rel_dir=os.path.dirname(noisy_rel))]
+        n = min(*(len(y) for y in ys), *(p.shape[0] for p in power.values()))
+        for p in power.values():
+            eps = rng.standard_normal((n, 16)).astype(np.float32)
+            for name, y in [("m1", None)] + [(m, y[:n]) for m in ("m2", "m2_info") for y in ys]:
+                got = rec.reconstruct(models[name], p[:n], y, eps=eps)
+                want = rec.reconstruct(on_cpu[name], p[:n].cpu(), y, eps=eps)
+                rec_err = max(rec_err, float(np.max(np.abs(got - want) / want)))
+                n_rec += 1
+        # the M2-info probe: its own soft labels on the clean power, the
+        # latent of that decode and the auxiliary classifier on it
+        s2 = power["s"][:n]
+        soft = rec.classify(models["m2_info"], "classify_from_x", s2)
+        r, z = rec.reconstruct(models["m2_info"], s2, soft, return_z=True)
+        yz = rec.classify(models["m2_info"], "classify_from_z", z)
+        probe_ok &= bool(np.isfinite(soft).all() and np.isfinite(yz).all() and np.isfinite(r).all())
+        for method, inp, out in (("classify_from_x", s2.cpu(), soft), ("classify_from_z", z, yz)):
+            probe_err = max(probe_err, float(np.abs(
+                rec.classify(on_cpu["m2_info"], method, inp) - out).max()))
+    walls["the engine"] = time.perf_counter() - t0
+    n_engine = stft_power.launches
+    check(n_engine == 2 * len(pairs), f"{n_engine} stft_power launches for {len(pairs)} pairs")
+    check(x2_err <= 1e-4, f"x2 from the kernel at {x2_err} of each frame's peak")
+    check(rec_err <= 1e-4, f"card vs CPU reconstructions: max rel diff {rec_err}")
+    check(probe_ok, "the M2-info probe's outputs are not finite")
+    log(f"phase 16: the reconstruction engine on {len(pairs)} of phase 14's test pairs (the "
+        f"CLI-trained M1 and M2-info of phase 13, phase 12's M2 VAD; each conditional model on "
+        f"the oracle and on phase 14's classifier labels): {n_engine} stft_power launches (2 "
+        f"per pair, the clean and the noisy power); x2 within {x2_err:.3e} of the plain power "
+        f"relative to each frame's peak (limit 1e-4); {n_rec} reconstructions with injected "
+        f"noise, card against CPU on the same power, labels and noise: max rel diff "
+        f"{rec_err:.3e} (limit 1e-4); the M2-info probe's classify_from_x / classify_from_z "
+        f"finite, max abs diff from the CPU {probe_err:.3e} (no limit) {tag}")
+
+    # ---- 16b. a QUT tree for the reconstruct_m* CLIs, then the six CLIs
+    noise_dir = os.path.join(work, "qut_noise")
+    os.makedirs(os.path.join(noise_dir, "test"), exist_ok=True)
+    nrng = np.random.default_rng(SEED + 160)
+    for name in QUT_NOISES:  # longer than every utterance, as create_test_set needs
+        write_wav(os.path.join(noise_dir, "test", f"{name}.wav"),
+                  0.1 * nrng.standard_normal(8 * FS), FS)
+    t0 = time.perf_counter()
+    n_qut = len(create_test_set.main(["--data-root", data, "--noise-dir", noise_dir]))
+    walls["create_test_set"] = time.perf_counter() - t0
+
+    def cli_argv(cli, model, classifier):
+        return ["--data-root", data, "--checkpoint", kept[model], "--max-utts",
+                str(RECON_CLI_UTTS), "--output-dir", os.path.join(work, "figures", cli)] + (
+            ["--y-source", "classifier", "--classifier-dir", preds["audio"]] if classifier
+            else [])
+
+    said = []
+    if importlib.util.find_spec("matplotlib") is not None:
+        def run_cli(job):
+            cli, model, classifier = job
+            t1 = time.perf_counter()
+            out, n = run_module(f"dvae_tpu_torch.cli.{cli}", cli_argv(cli, model, classifier),
+                                count_stft=True)
+            return out, n, time.perf_counter() - t1
+
+        with concurrent.futures.ThreadPoolExecutor(len(RECON_CLIS)) as pool:
+            ran = list(pool.map(run_cli, RECON_CLIS))
+        for (cli, model, _), (out, n, wall) in zip(RECON_CLIS, ran):
+            # the utterances of this tree are each speaker's sa1: their
+            # figure names repeat, and each name holds the last one's figures
+            names = {x.split()[-1] for x in out.splitlines() if x.startswith("reconstructed ")}
+            files = sorted(os.listdir(os.path.join(work, "figures", cli)))
+            want = sorted(f"{u}{s}" for u in names for s in FIGURES[model])
+            done = out.count("reconstructed ")
+            check(done == RECON_CLI_UTTS and n == 2 * done and files == want and all(
+                os.path.getsize(os.path.join(work, "figures", cli, f)) > 0 for f in files),
+                f"{cli}: {done} utterances, {n} stft_power launches, files {files}")
+            walls[cli] = wall
+            said.append(f"{cli} {done} utterances, {n} stft_power launches, {len(files)} "
+                        f"figures")
+        log(f"phase 16: the six reconstruct CLIs as processes, side by side: {'; '.join(said)} "
+            f"(QUT tree of {n_qut} mixtures from create_test_set) {tag}")
+    else:
+        log("phase 16: the six reconstruct CLIs are not run as processes: matplotlib does not "
+            "import on this machine, and every reconstruct CLI draws figures")
+        r = subprocess.run([sys.executable, "-m", "dvae_tpu_torch.cli.reconstruct_ntcd_m1",
+                            *cli_argv("reconstruct_ntcd_m1", "m1", False)],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                           text=True, timeout=300)
+        check(r.returncode != 0 and "need matplotlib" in r.stderr and "loaded" not in r.stdout,
+              f"reconstruct_ntcd_m1 without matplotlib: exit {r.returncode}, {r.stderr[-500:]}")
+        # each CLI's walk, model and device path in process, the figure
+        # writer replaced by a recorder of the names and rows it is given
+        calls = []
+        guard, save = viz.require_matplotlib, rec.save_signal_rows
+        viz.require_matplotlib = lambda what="figures": None
+        rec.save_signal_rows = lambda out_path, rows, *a, **k: calls.append((str(out_path), rows))
+        try:
+            for cli, model, classifier in RECON_CLIS:
+                calls.clear()
+                stft_power.launches = 0
+                t1 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):  # its per-utterance lines
+                    done = importlib.import_module(f"dvae_tpu_torch.cli.{cli}").main(
+                        cli_argv(cli, model, classifier))
+                walls[f"{cli} (in process)"] = time.perf_counter() - t1
+                kinds = [next((s for s in FIGURES[model] if path.endswith(s)), None)
+                         for path, _ in calls]
+                finite = all(np.isfinite(np.asarray(v)).all() for _, rows in calls
+                             for row in rows for v in row if v is not None)
+                check(done == RECON_CLI_UTTS and stft_power.launches == 2 * done and finite
+                      and None not in kinds and sorted(kinds) == sorted(FIGURES[model] * done),
+                      f"{cli}: {done} utterances, {stft_power.launches} launches, figures "
+                      f"{kinds}, finite {finite}")
+                said.append(f"{cli} {done} utterances, {stft_power.launches} stft_power "
+                            f"launches, {len(calls)} figures ({len(FIGURES[model])} each)")
+        finally:
+            viz.require_matplotlib, rec.save_signal_rows = guard, save
+        log(f"phase 16: reconstruct_ntcd_m1 as a process exits {r.returncode} naming matplotlib, "
+            f"before any device work; the six reconstruct CLIs in process on the card, "
+            f"--max-utts {RECON_CLI_UTTS}, the figure writer recording (nothing rendered): "
+            f"{'; '.join(said)} (QUT tree of {n_qut} mixtures from create_test_set) {tag}")
+
+    # ---- 16c. run_metrics and run_metrics_classif as processes, side by side
+    out_dirs = {k: os.path.join(work, f"scores_{k}") for k in ("input", "audio", "video", "av")}
+    for d in out_dirs.values():
+        os.makedirs(d, exist_ok=True)
+    enhanced = {"audio": os.path.join(work, "enh_classifier"),
+                "video": os.path.join(work, "enh_video")}
+    jobs = {("run_metrics", k): ["--model-output-dir", enhanced[k], "--suffix", "_y_hat_hard",
+                                 "--classifier-dir", preds[k]] for k in enhanced}
+    jobs["run_metrics", "input"] = ["--score-input", "--model-output-dir", out_dirs["input"]]
+    for k in preds:
+        jobs["run_metrics_classif", k] = ["--classifier-dir", preds[k], "--stats-dir",
+                                          out_dirs[k]]
+
+    def run_job(job):
+        t1 = time.perf_counter()
+        out, _ = run_module(f"dvae_tpu_torch.cli.{job[0]}", ["--data-root", data, *jobs[job]])
+        return out, time.perf_counter() - t1
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        outs = dict(zip(jobs, pool.map(run_job, jobs)))
+    walls["the six scoring processes, side by side"] = time.perf_counter() - t0
+    scores = {}
+    for (cli, k), (_, wall) in outs.items():
+        walls[f"{cli} {k}"] = wall
+        path = (os.path.join(out_dirs[k], "stats_input.json") if k == "input" else
+                os.path.join(enhanced[k] if cli == "run_metrics" else out_dirs[k], "stats.json"))
+        with open(path) as f:
+            scores[cli, k] = json.load(f)
+    pesq_by = "the licensed wheel" if pesq_wheel_available() else "native P.862.2"
+    for k in ("audio", "video", "input"):
+        st = scores["run_metrics", k]["overall"]
+        for key in ("si_sdr", "estoi", "pesq"):
+            check(st[key]["avg"] is not None and np.isfinite(st[key]["avg"]),
+                  f"run_metrics {k}: {key} {st[key]}")
+        what = ("--score-input (the mixtures)" if k == "input" else
+                f"on phase {14 if k == 'audio' else 15}'s evaluate_ntcd_m2 outputs, --suffix "
+                f"_y_hat_hard --classifier-dir <the {k} labels>")
+        log(f"phase 16: run_metrics {what} over {len(all_pairs)} mixtures "
+            f"({walls['run_metrics ' + k]:.1f} s, a process of its own; PESQ {pesq_by}): "
+            + ", ".join(f"{key} {v['avg']} +/- {v['+/-']}" for key, v in st.items())
+            + f" (no limit) {tag}")
+    # the in-sweep F1 columns against run_metrics_classif over the same hard
+    # labels: the classif index takes one file per (speaker, utterance), the
+    # first path sorted, which is the Babble half of the per-mixture labels;
+    # the video net's labels are one per utterance, for both noise types
+    for k, groups in (("audio", ("Babble",)), ("video", ("Babble", "LR"))):
+        want = {key: scores["run_metrics_classif", k]["overall"][key] for key in F1_KEYS}
+        for g in groups:
+            got = {key: scores["run_metrics", k]["noise_type"][g][key] for key in F1_KEYS}
+            check(got == want, f"run_metrics {k} {g} F1 columns {got} vs classif {want}")
+    pooled = {}
+    for k in preds:
+        lines = [x for x in outs["run_metrics_classif", k][0].splitlines()
+                 if x.startswith("pooled over")]
+        check(len(lines) == 1, f"run_metrics_classif {k}: pooled lines {lines}")
+        pooled[k] = lines[0]
+    check(f1_numbers(pooled["video"]) == f1_numbers(said_f1["video"]),
+          f"video labels: {pooled['video']} vs predict_vad_labels' {said_f1['video']}")
+    for k in preds:
+        st = scores["run_metrics_classif", k]["overall"]
+        same = {"audio": "; run_metrics' F1 columns for Babble equal these",
+                "video": "; run_metrics' F1 columns for both noise types equal these",
+                "av": ""}[k]
+        log(f"phase 16: run_metrics_classif on the {k} labels "
+            f"({walls['run_metrics_classif ' + k]:.1f} s, a process of its own): per utterance "
+            + ", ".join(f"{key} {st[key]['avg']} +/- {st[key]['+/-']}" for key in F1_KEYS)
+            + f"{same}; {pooled[k]}; predict_vad_labels said {said_f1[k]} "
+            + ("(the same files: equal)" if k == "video" else
+               "(over both noise types; run_metrics_classif scored the Babble half; no limit)")
+            + f" {tag}")
+
+    # ---- 16d. host times of the scorers, B2 at one utterance
+    t_stoi, t_pesq = [], []
+    for noisy_rel, clean_rel in pairs:
+        s_path = rec.ntcd_pair_wavs(proc, noisy_rel, clean_rel)[0]
+        s_t, fs = read_wav(s_path)
+        s_hat = read_wav(os.path.join(enhanced["audio"], os.path.splitext(noisy_rel)[0]
+                                      + "_s_est_y_hat_hard.wav"))[0]
+        off, n = int(0.05 * fs), min(len(s_t), len(s_hat))
+        s_t, s_hat = s_t[off:n - off], s_hat[off:n - off]
+        t1 = time.perf_counter()
+        stoi(s_t, s_hat, fs, extended=True)
+        t_stoi.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        pesq_wb(s_t, s_hat, fs)
+        t_pesq.append(time.perf_counter() - t1)
+    log(f"phase 16: host time per ~5 s utterance over {len(pairs)} (the run_metrics trims): "
+        f"ESTOI mean {1e3 * np.mean(t_stoi):.2f} ms (median {1e3 * np.median(t_stoi):.2f}), "
+        f"native PESQ mean {1e3 * np.mean(t_pesq):.2f} ms (median "
+        f"{1e3 * np.median(t_pesq):.2f}) {tag}")
+    one = read_wav(rec.ntcd_pair_wavs(proc, *pairs[0])[0])[0].astype(np.float32)
+    xp = pad_signal(torch.as_tensor(one, device=dev), cfg)[None].contiguous()
+    entry = time_stft(xp, False, "reconstruct, one utterance", n_engine, cuda_ms, tag, phase=16)
+    log(f"phase 16: walls {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}; "
+        f"{time.perf_counter() - t_phase:.1f} s in all {tag}")
+    return [entry]
 
 
 def main() -> int:
@@ -3214,10 +3549,12 @@ def main() -> int:
             labelled_entries, m2_vad = labelled_training_phase(wavs, cleans, cuda_ms, agree,
                                                                tag, work, keep)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
-            cli_entries = cli_chain_phase(wavs, cleans, cuda_ms, agree, tag, work)
+            cli_entries, kept = cli_chain_phase(wavs, cleans, cuda_ms, agree, tag, work, keep)
+        said_f1 = {}
         with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
-            audio_entries = audio_vad_phase(m2_vad, cuda_ms, agree, tag, work)
-            video_entries = video_vad_phase(m2_vad, cuda_ms, agree, tag, work)
+            audio_entries = audio_vad_phase(m2_vad, cuda_ms, agree, tag, work, said_f1)
+            video_entries = video_vad_phase(m2_vad, cuda_ms, agree, tag, work, said_f1)
+            scoring_entries = scoring_phase(dict(kept, m2=m2_vad), said_f1, cuda_ms, tag, work)
     peem_profile(enh.mats, (x2b, z0b, maskb), cfg.mcem, tag)
 
     def m1_chain_entry(name, fast, n):
@@ -3231,7 +3568,7 @@ def main() -> int:
                                 m1_chain_entry("mh_chain_f32", False, launches_f32),
                                 *stft_entries, *cond_entries, *engine_entries,
                                 *serving_entries, *labelled_entries, *cli_entries,
-                                *audio_entries, *video_entries]}))
+                                *audio_entries, *video_entries, *scoring_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -104,8 +104,8 @@ def proc_video_audio_pair_dict(input_video_dir, dataset_type="train",
     audio_dir = os.path.join(input_video_dir, "ntcd_timit/Clean", _split(dataset_type))
     rel = lambda ps: [os.path.relpath(p, input_video_dir) for p in ps]
     if upsampled:
-        return (rel(_label_files(video_dir, "_upsampled")),
-                rel(_label_files(audio_dir, f"_{labels}")))
+        return (rel(label_files(video_dir, "_upsampled")),
+                rel(label_files(audio_dir, f"_{labels}")))
     if dct:
         pattern = "**/*_dct.h5"
     elif norm_video:
@@ -160,7 +160,7 @@ def noisy_clean_pair_dict(input_speech_dir, dataset_type="train", dataset_size="
     return pairs
 
 
-def _label_files(clean_dir: str, suffix: str) -> list[str]:
+def label_files(clean_dir: str, suffix: str) -> list[str]:
     """The per-utterance files (labels or lip videos) ``*<suffix>.h5`` /
     ``*<suffix>.npz`` under ``clean_dir``, one per utterance (the ``.h5``
     where both exist), sorted by their paths without the extension: for a
@@ -178,7 +178,7 @@ def proc_noisy_clean_pair_dict(input_speech_dir, dataset_type="train",
     """{processed noisy wav -> clean label file} (ntcd_timit.py:386-474)."""
     clean_dir = os.path.join(input_speech_dir, "ntcd_timit/Clean", _split(dataset_type))
     suffix = f"{labels}_upsampled" if upsampled else labels
-    clean_files = _label_files(clean_dir, suffix)
+    clean_files = label_files(clean_dir, suffix)
     shortpaths = []
     for c in clean_files:
         p = pathlib.Path(c)

@@ -8,7 +8,9 @@ utterance as a per-utterance ISTFT would.
 
 Layout is (..., frames, bins), as in the JAX package. The DFT is a pair of
 f32 matmuls against cos/-sin bases with the window folded in; the bases are
-built once with numpy and moved to each device once.
+built once with numpy and moved to each device once. :func:`stft` joins the
+two parts into a complex tensor and :func:`stft_to_host` into a host
+complex64 array (the figures' spectrograms).
 """
 
 from __future__ import annotations
@@ -197,6 +199,23 @@ def stft_realimag(x: torch.Tensor, cfg: StftConfig = StftConfig()):
     frames = frame_signal(x, cfg.nfft, cfg.hop)
     cos, msin = _dft_matrices(cfg.nfft, cfg.window, x.device)
     return torch.matmul(frames, cos), torch.matmul(frames, msin)
+
+
+def stft(x: torch.Tensor, cfg: StftConfig = StftConfig()) -> torch.Tensor:
+    """Complex64 STFT of a (..., T) float signal -> (..., frames, bins)."""
+    re, im = stft_realimag(x, cfg)
+    return torch.complex(re, im)
+
+
+def stft_to_host(x, cfg: StftConfig = StftConfig(), device=None) -> np.ndarray:
+    """The complex STFT of a signal (array or tensor) as a host complex64
+    array: the matmul DFT on ``device`` (the tensor's own, or the CPU for an
+    array), its two float parts read back and joined on the host, as the JAX
+    package's ``stft_to_host`` returns it."""
+    x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x, np.float32))
+    with torch.no_grad():
+        re, im = stft_realimag(x.to(device or x.device), cfg)
+    return re.cpu().numpy() + 1j * im.cpu().numpy()
 
 
 def power_spectrogram(x: torch.Tensor, cfg: StftConfig = StftConfig()) -> torch.Tensor:

@@ -943,3 +943,43 @@ def test_cuda_av_batch_and_models_match_cpu(cuda):
         pk = make_lstm_vad_predict(model.to(cuda), norm=norm)(xk).cpu()
         pp = make_lstm_vad_predict(model.cpu(), norm=norm)(xp)
         np.testing.assert_allclose(pk.numpy(), pp.numpy(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_reconstruct_power_spec_takes_b2(cuda):
+    """``eval/reconstruct`` on the card: ``power_spec`` takes one STFT power
+    launch per signal (a ~5 s utterance, 313 frames) and its power is
+    within 1e-4 of the CPU's plain power relative to each frame's peak; the
+    figures' complex STFT is the matmul DFT, within 1e-5 of the CPU's
+    relative to each frame's peak |S|. ``reconstruct`` and the classifiers
+    of a full-width M2-info on the card, fed the same power, labels and
+    injected noise as on the CPU: rtol 1e-4."""
+    from dvae_tpu_torch.eval import reconstruct as rec
+
+    rng = np.random.default_rng(9)
+    t = np.arange(80800) / 16000  # 5.05 s
+    wav = 0.3 * np.sin(2 * np.pi * 170 * t) * (t % 0.5 < 0.3) + 0.01 * rng.standard_normal(len(t))
+    before = stft_power.launches
+    S, x2 = rec.power_spec(wav, device=cuda)
+    assert stft_power.launches - before == 1 and x2.is_cuda and x2.shape == (313, F)
+    S_cpu, x2_cpu = rec.power_spec(wav)
+    assert stft_power.launches - before == 1
+    peak = x2_cpu.amax(-1, keepdim=True)
+    assert float(((x2.cpu() - x2_cpu).abs() / peak).max()) <= 1e-4
+    assert float((np.abs(S - S_cpu) / np.abs(S_cpu).max(-1, keepdims=True)).max()) <= 1e-5
+
+    model = DisentangledVAE(F, 1, L, (128, 128))
+    x2_host = x2.cpu()
+    y = (rng.random((313, 1)) > 0.4).astype(np.float32)
+    eps = rng.standard_normal((313, L)).astype(np.float32)
+    r_cpu, z_cpu = rec.reconstruct(model, x2_host, y, eps=eps, return_z=True)
+    soft_cpu = rec.classify(model, "classify_from_x", x2_host)
+    aux_cpu = rec.classify(model, "classify_from_z", z_cpu)
+    model.to(cuda)
+    r, z = rec.reconstruct(model, x2, y, eps=eps, return_z=True)
+    np.testing.assert_allclose(r, r_cpu, rtol=1e-4)
+    np.testing.assert_allclose(z, z_cpu, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(rec.classify(model, "classify_from_x", x2), soft_cpu,
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(rec.classify(model, "classify_from_z", z), aux_cpu,
+                               rtol=1e-4, atol=1e-6)
