@@ -202,7 +202,30 @@ Phases, in order; any failure exits non-zero:
    pooled F1 equal to ``predict_vad_labels``' ``vs oracle:`` line); then
    the scorers' host time per utterance and B2 at one utterance against
    its plain version, ``torch.stft`` and its bound, each with the card's
-   name and power limit.
+   name and power limit;
+17. decoders of any depth and width (ROADMAP A10) and the BatchNorm
+   classifier (A16), after phase 16: the MH-chain kernel against its plain
+   chain at the phase-3 batch's 10,240 rows, frozen and live, E-step and WF
+   segments, the f32 body at ``--h-dim`` 128, 128 128 128, 256 128 64,
+   100 37 9 (odd widths) and 512 512 512 and the bf16 body at 256 256 and
+   512 512 (the WF segments of the widest in the lean layout), a
+   conditioned row bias at depth 3, and ``Enhancer`` raising ValueError
+   naming ROADMAP A10b at depth 0, depth 9 and width 513; the M1
+   ``Enhancer`` on the phase-3 batch at the full budget at each of those
+   shapes (exactly niter + 1 launches of the f32 body at depths other than
+   2, of the bf16 body at 256 256 and 512 512, the plain chain refusing to
+   run, finite outputs), and the frozen-chain config through the kernel and
+   through the plain chain at 128 128 128 and 256 256 with phase 3's
+   limits; every engine and ablation at 128 128 128 with their launch
+   counts and segment rows, all in the f32 body; the CLI chain at depth 3
+   as processes (``training_m1 --h-dim 256 128 64``, two epochs on phase
+   13's VAD frame set, run beside the checks above, then
+   ``evaluate_ntcd_m1 --h-dim 256 128 64`` from its best ``.pt`` on phase
+   10's sweep tree with niter + 1 f32-body launches per batch);
+   ``Classifier(batch_norm=True)`` on the card against the CPU in both
+   modes with its running statistics; then each shape's E-step and WF
+   segment times (CUDA events) beside their bounds, and both bodies at
+   128 128 again, each with the card's name and power limit.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -240,6 +263,20 @@ PEAK_BYTES = 3.35e12
 # within rounding of a bf16 rounding boundary can round the other way and
 # move its row's Vs by up to ~1e-3 relative (a few rows in a thousand)
 BF16_MAX_REL, BF16_REL, BF16_SHARE = 5e-3, 1e-5, 0.99
+
+
+def bf16_share_limit(units: int = 256) -> float:
+    """The share of Vs elements the bf16 body must hold within BF16_REL
+    for a decoder of ``units`` hidden units in all: BF16_SHARE at 128/128,
+    with the allowance growing in proportion beyond. A row's Vs moves when
+    any one of its units rounds the other way, so the rows that move grow
+    with the units: measured on the card (phase 17, NVIDIA H100 80GB HBM3
+    at 700 W), 0.06%, 0.20% and 0.43% of the elements of a frozen chain
+    from the phase-2 latents at 256, 512 and 1,024 units, and 0.19%, 0.57%
+    and 1.54% at a live chain's latents, where the kernel's last sample
+    against the plain bf16 decoder on the kernel's own latent moves as
+    many, so no chain state is involved."""
+    return 1.0 - (1.0 - BF16_SHARE) * max(1.0, units / 256)
 
 
 def log(msg: str) -> None:
@@ -284,18 +321,21 @@ def vad_labels(clean: np.ndarray, n_frames: int, hop: int, half: int) -> np.ndar
     return (e[centres] > 1e-3 * e.max()).astype(np.float32)
 
 
-def chain_work(rows, f, l, h1, h2, n_burn, n_samples, wf):
+def chain_work(rows, f, l, widths, n_burn, n_samples, wf):
     """(product flops, elementwise flops, special functions, bytes) one
-    chain segment needs: every step decodes all rows (plus the initial
-    decode); each input is read once and each output written once. The
-    special functions are the exp, log and divide per (row, step, bin),
-    and WF mode's two divides per emitted (row, bin)."""
+    chain segment needs with a decoder of hidden ``widths``: every step
+    decodes all rows (plus the initial decode); each input is read once and
+    each output written once. The special functions are the exp, log and
+    divide per (row, step, bin), and WF mode's two divides per emitted
+    (row, bin)."""
     steps = n_burn + n_samples + 1
-    macs = rows * steps * (l * h1 + h1 * h2 + h2 * f)
+    dims = (l, *widths, f)
+    layer_macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    macs = rows * steps * layer_macs
     # per (row, step, bin): exp, g*Vs+Vb, max, log, divide, add
     elem = rows * steps * f * 6 + (rows * n_samples * f * 5 if wf else 0)
     sfu = rows * steps * f * 3 + (rows * n_samples * f * 2 if wf else 0)
-    weights = l * h1 + h1 * h2 + h2 * f + h1 + h2 + f
+    weights = layer_macs + sum(widths) + f
     reads = 2 * rows * f + rows + rows * l + (steps - 1) * rows * (l + 1) + weights
     writes = rows * l + (2 * rows * f if wf else n_samples * rows * f)
     return 2 * macs, elem, sfu, 4 * (reads + writes)
@@ -339,6 +379,52 @@ def log_err(got, p):
     peak power (limit 1e-3)."""
     big = p > 1e-6 * p.amax()
     return float((got[big] - (p[big] + 1e-12).log()).abs().max())
+
+
+def frozen_vs_plain(model, frozen, wavs, batch, frames, plain_chain, name: str,
+                    phase: int) -> None:
+    """A frozen-chain McemConfig (``frozen``) through the kernel and through
+    the plain chain, with phase 3's limits: ``run_mcem`` on ``batch`` (x2,
+    z0, mask, as the main path sees the phase-3 batch), then
+    ``enhance_batch`` on ``wavs`` (float32 wire, device-side noise
+    estimate), whose waveforms are compared where the ISTFT's window
+    normalizer is full (the first and last nfft samples of an utterance
+    divide by a normalizer down to ~1e-10, as in the reference)."""
+    import torch
+
+    from dvae_tpu_torch.enhance.mcem import run_mcem
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+
+    x2b, z0b, maskb = batch
+    fcfg = EnhancerConfig(mcem=frozen, noise_from_partition=False, wire_dtype="float32")
+    enh_k = Enhancer(model, fcfg)
+    with torch.inference_mode():
+        rk = run_mcem(enh_k.mats, x2b, z0b, maskb, SEED, frozen)
+        with plain_chain():
+            rp = run_mcem(enh_k.mats, x2b, z0b, maskb, SEED, frozen)
+    torch.cuda.synchronize()
+    mask_err, cost_err, part = frozen_agreement(rk, rp, maskb)
+    log(f"phase {phase}: {name} frozen-chain run_mcem kernel vs plain: max mask diff "
+        f"{mask_err:.3e} (limit 1e-3), max cost rel diff {cost_err:.3e} (limit 1e-4), "
+        f"|WFs + WFn - 1| <= {part:.3e} on valid frames (limit 1e-5)")
+    check(mask_err < 1e-3 and cost_err < 1e-4 and part < 1e-5,
+          f"{name} frozen run_mcem: kernel vs plain")
+
+    out_k = enh_k.enhance_batch(wavs, seed=SEED)
+    with plain_chain():
+        out_p = enh_k.enhance_batch(wavs, seed=SEED)
+    wave_err, part_err = 0.0, 0.0
+    nfft, hop = fcfg.stft.nfft, fcfg.stft.hop
+    for (sk_, nk_), (sp_, _), xx, fr in zip(out_k, out_p, wavs, frames):
+        peak = float(np.abs(xx).max())
+        core = slice(nfft, min(len(xx), (fr - 1) * hop + nfft) - nfft)
+        wave_err = max(wave_err, float(np.abs(sk_ - sp_)[core].max()) / peak)
+        part_err = max(part_err, float(np.abs(sk_ + nk_ - xx)[core].max()) / peak)
+    log(f"phase {phase}: {name} frozen-chain enhance_batch kernel vs plain: max |s_k - s_p| "
+        f"/ peak {wave_err:.3e} (limit 1e-3); Wiener partition max |s + n - x| / peak "
+        f"{part_err:.3e} on covered samples (limit 1e-4)")
+    check(wave_err < 1e-3 and part_err < 1e-4,
+          f"{name} frozen enhance_batch: kernel vs plain, partition")
 
 
 def frozen_agreement(rk, rp, mask):
@@ -744,8 +830,8 @@ def conditioned_segment(mats, inputs, mc, cuda_ms, agree) -> dict:
             False, True)
     k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
     p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
-    h1, h2 = cm[0].shape[1], cm[3].shape[1]
-    work = chain_work(rows, f, l, h1, h2, n_burn, n_samp, False)
+    h1 = cm.widths[0]
+    work = chain_work(rows, f, l, cm.widths, n_burn, n_samp, False)
     work = (*work[:3], work[3] + 4 * rows * h1)  # plus the row bias, read once
     b_ms, b_by = chain_bound_ms(work, True)
     fargs = (*args[:9], 0.0, False, True)
@@ -948,6 +1034,84 @@ def sweep_tree(root: str, count: int, seed: int):
     return sorted(noisy)
 
 
+@contextlib.contextmanager
+def chain_calls():
+    """The (rows, WF mode) of every chain segment the engines run: the
+    launches themselves are counted by the wrapper."""
+    from dvae_tpu_torch.enhance import mcem
+
+    seen, real = [], mcem.run_mh_chain
+
+    def spy(mats, x2, *args, **kw):
+        seen.append((x2.shape[0], kw["wf_mode"]))
+        return real(mats, x2, *args, **kw)
+
+    mcem.run_mh_chain = spy
+    try:
+        yield seen
+    finally:
+        mcem.run_mh_chain = real
+
+
+def engine_fields(mc, rows: int) -> dict:
+    """{name: (EnhancerConfig fields, the (rows, WF mode) chain segments
+    the run must make)} of every engine and ablation beside mcem, for a
+    batch of ``rows`` frame rows."""
+    r = mc.pmcem_chains
+    return {
+        "pmcem": (dict(engine="pmcem"), [(r * rows, False)] * mc.niter + [(r * rows, True)]),
+        "peem": (dict(engine="peem"), []),
+        "peem-wf": (dict(engine="peem-wf"), [(rows, True)]),
+        "clean-z": (dict(ablation="clean_z"), [(rows, False)] * mc.niter + [(rows, True)]),
+        "clean-z-nomcem": (dict(ablation="clean_z_nomcem"), []),
+    }
+
+
+def engine_runs(model, wavs, cleans, mc, batch_shape, bf16: bool, phase: int) -> list:
+    """Each engine and ablation of :func:`engine_fields` once through the
+    ``Enhancer`` on ``wavs`` (mixtures of ``cleans``; float32 wire,
+    device-side noise estimate), counts from 0 around each run: every chain
+    segment at the rows and mode the engine makes, each one launch of the
+    body the decoder takes (the bf16 body if ``bf16``, else the f32 body),
+    finite outputs and the Wiener partition. Returns pmcem's segments."""
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped
+
+    stft_cfg = StftConfig()
+    nfft, hop = stft_cfg.nfft, stft_cfg.hop
+    frames = [n_stft_frames_clamped(len(x), stft_cfg) for x in wavs]
+
+    def partition_err(out):
+        worst = 0.0
+        for (s, n_), x, fr in zip(out, wavs, frames):
+            core = slice(nfft, min(len(x), (fr - 1) * hop + nfft) - nfft)
+            worst = max(worst, float(np.abs(s + n_ - x)[core].max()) / float(np.abs(x).max()))
+        return worst
+
+    pmcem_seen = []
+    for name, (fields, want) in engine_fields(mc, batch_shape[0] * batch_shape[1]).items():
+        enh = Enhancer(model, EnhancerConfig(mcem=mc, wire_dtype="float32",
+                                             noise_from_partition=False, **fields))
+        mh_chain.launches = mh_chain.launches_mma = 0
+        with chain_calls() as seen:
+            out = enh.enhance_batch(wavs, seed=SEED, clean_wavs=cleans)
+        n_all, n_mma = mh_chain.launches, mh_chain.launches_mma
+        part = partition_err(out)
+        finite = all(np.isfinite(s).all() and np.isfinite(n_).all() and len(s) == len(x)
+                     for (s, n_), x in zip(out, wavs)) and np.isfinite(enh.last_cost).all()
+        log(f"phase {phase}: {name}: {n_all} mh_chain launches ({n_mma} of the bf16 body; "
+            f"expected {len(want)}), segments at {sorted(set(seen))} rows / WF mode; cost "
+            f"{enh.last_cost[0]:.5f} -> {enh.last_cost[-1]:.5f}; outputs finite: {finite}; "
+            f"Wiener partition max |s + n - x| / peak {part:.3e} (limit 1e-4)")
+        check(n_all == len(want) and n_mma == (n_all if bf16 else 0) and seen == want,
+              f"{name}: chain launches")
+        check(finite and part < 1e-4, f"{name}: outputs finite, Wiener partition")
+        if name == "pmcem":
+            pmcem_seen = seen
+    return pmcem_seen
+
+
 def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, tag: str,
                   m1_wall: float, work: str) -> list:
     """Phase 10 on the card: every E-step engine and ablation beside mcem at
@@ -957,7 +1121,7 @@ def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, t
     import torch
 
     from dvae_tpu_torch.cli import evaluate_ntcd_m1, evaluate_ntcd_m2_info_vad
-    from dvae_tpu_torch.enhance import mcem, mh_chain
+    from dvae_tpu_torch.enhance import mh_chain
     from dvae_tpu_torch.enhance.labeling import self_soft_labels
     from dvae_tpu_torch.enhance.mcem import run_peem, run_peem_wf, run_pmcem
     from dvae_tpu_torch.enhance.mh_chain import (
@@ -971,7 +1135,7 @@ def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, t
     from dvae_tpu_torch.models import DisentangledVAE
     from dvae_tpu_torch.models.blocks import init_xavier_
     from dvae_tpu_torch.ops import stft_power
-    from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped
+    from dvae_tpu_torch.ops.stft import StftConfig
 
     dev, sync = torch.device("cuda"), torch.cuda.synchronize
     x2b, z0b, maskb = batch
@@ -979,62 +1143,12 @@ def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, t
     l = z0b.shape[-1]
     rows, r = b * n_pad, mc.pmcem_chains
     stft_cfg = StftConfig()
-    nfft, hop = stft_cfg.nfft, stft_cfg.hop
-    frames = [n_stft_frames_clamped(len(x), stft_cfg) for x in wavs]
     mats = extract_decoder_mlp(model, l)
-
-    @contextlib.contextmanager
-    def chain_calls():
-        """The (rows, WF mode) of every chain segment the engines run: the
-        launches themselves are counted by the wrapper."""
-        seen, real = [], mcem.run_mh_chain
-
-        def spy(mats, x2, *args, **kw):
-            seen.append((x2.shape[0], kw["wf_mode"]))
-            return real(mats, x2, *args, **kw)
-
-        mcem.run_mh_chain = spy
-        try:
-            yield seen
-        finally:
-            mcem.run_mh_chain = real
-
-    # (EnhancerConfig fields, the chain segments the run must make)
-    runs = {
-        "pmcem": (dict(engine="pmcem"), [(r * rows, False)] * mc.niter + [(r * rows, True)]),
-        "peem": (dict(engine="peem"), []),
-        "peem-wf": (dict(engine="peem-wf"), [(rows, True)]),
-        "clean-z": (dict(ablation="clean_z"), [(rows, False)] * mc.niter + [(rows, True)]),
-        "clean-z-nomcem": (dict(ablation="clean_z_nomcem"), []),
-    }
-
-    def partition_err(out):
-        worst = 0.0
-        for (s, n_), x, fr in zip(out, wavs, frames):
-            core = slice(nfft, min(len(x), (fr - 1) * hop + nfft) - nfft)
-            worst = max(worst, float(np.abs(s + n_ - x)[core].max()) / float(np.abs(x).max()))
-        return worst
+    runs = engine_fields(mc, rows)
 
     # ---- 10a. each engine and ablation once, counts from 0 around the path
-    pmcem_launches = 0
-    for name, (fields, want) in runs.items():
-        enh = Enhancer(model, EnhancerConfig(mcem=mc, wire_dtype="float32",
-                                             noise_from_partition=False, **fields))
-        mh_chain.launches = mh_chain.launches_mma = 0
-        with chain_calls() as seen:
-            out = enh.enhance_batch(wavs, seed=SEED, clean_wavs=cleans)
-        n_all, n_mma = mh_chain.launches, mh_chain.launches_mma
-        part = partition_err(out)
-        finite = all(np.isfinite(s).all() and np.isfinite(n_).all() and len(s) == len(x)
-                     for (s, n_), x in zip(out, wavs)) and np.isfinite(enh.last_cost).all()
-        log(f"phase 10: {name}: {n_all} mh_chain launches ({n_mma} of the bf16 body; "
-            f"expected {len(want)}), segments at {sorted(set(seen))} rows / WF mode; cost "
-            f"{enh.last_cost[0]:.5f} -> {enh.last_cost[-1]:.5f}; outputs finite: {finite}; "
-            f"Wiener partition max |s + n - x| / peak {part:.3e} (limit 1e-4)")
-        check(n_all == n_mma == len(want) and seen == want, f"{name}: chain launches")
-        check(finite and part < 1e-4, f"{name}: outputs finite, Wiener partition")
-        if name == "pmcem":
-            pmcem_launches = sum(not wf for _, wf in seen)
+    pmcem_seen = engine_runs(model, wavs, cleans, mc, (b, n_pad), True, 10)
+    pmcem_launches = sum(not wf for _, wf in pmcem_seen)
 
     v5 = init_xavier_(DisentangledVAE(513, 1, 16, (128, 128)), torch.Generator().manual_seed(SEED))
     enh_v5 = Enhancer(v5, EnhancerConfig(mcem=mc, y_mode="dec_only", engine="pmcem"))
@@ -1046,7 +1160,7 @@ def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, t
         f"{mh_chain.launches} mh_chain launches ({mh_chain.launches_mma} bf16), segments at "
         f"{sorted(set(seen))}; cost {enh_v5.last_cost[0]:.5f} -> {enh_v5.last_cost[-1]:.5f}")
     check(stft_power.launches == 1 and mh_chain.launches == mc.niter + 1
-          and seen == runs["pmcem"][1], "M2-info pmcem launches")
+          and seen == pmcem_seen, "M2-info pmcem launches")
     check(all(np.isfinite(s).all() and np.isfinite(n_).all() for s, n_ in out)
           and np.isfinite(enh_v5.last_cost).all(), "M2-info pmcem outputs finite")
 
@@ -1096,7 +1210,6 @@ def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, t
                           mc.nmf_rank, mc.eps, device=dev)
     vb_r = compute_vb(w_, h_).reshape(rows, f)
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-    h1, h2 = mats[0].shape[1], mats[3].shape[1]
 
     def segment(rep, z, n_burn, n_samp, wf):
         """A main-path segment at ``rep`` copies of the batch's rows: times,
@@ -1109,7 +1222,7 @@ def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, t
                 mc.var_rw, wf, True)
         k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
         p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
-        b_ms, b_by = chain_bound_ms(chain_work(rr, f, l, h1, h2, n_burn, n_samp, wf), True)
+        b_ms, b_by = chain_bound_ms(chain_work(rr, f, l, mats.widths, n_burn, n_samp, wf), True)
         fargs = (*args[:9], 0.0, wf, True)
         got, ref = run_mh_chain(*fargs)[1], mh_chain_reference(*fargs)[1]
         sync()
@@ -1550,8 +1663,7 @@ def serving_phase(model, wavs, cuda_ms, plain_chain, agree, tag: str, work: str)
             True)
     k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
     p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
-    h1, h2 = enh8.mats[0].shape[1], enh8.mats[3].shape[1]
-    work_ = chain_work(rows, f, l, h1, h2, n_burn, n_samp, False)
+    work_ = chain_work(rows, f, l, enh8.mats.widths, n_burn, n_samp, False)
     b_ms, b_by = chain_bound_ms(work_, True)
     fargs = (*args[:9], 0.0, False, True)
     _, sk = run_mh_chain(*fargs)
@@ -1900,16 +2012,21 @@ def write_raw_tree(raw: str, splits: dict) -> dict:
     return paths
 
 
-def run_module(module: str, argv: list, count_stft: bool = False) -> tuple:
+def run_module(module: str, argv: list, count_stft: bool = False,
+               count_chain: bool = False) -> tuple:
     """``python -m module *argv`` as a subprocess from the repo's root; with
-    ``count_stft`` through a wrapper that prints the process's B2 launches
-    at its end. Returns (stdout, launches or None); a non-zero exit fails."""
+    ``count_stft`` (``count_chain``) through a wrapper that prints the
+    process's B2 launches (B1 launches, all and the bf16 body's) at its end.
+    Returns (stdout, B2 launches or (B1 launches, bf16 ones) or None); a
+    non-zero exit fails."""
     root = os.path.dirname(os.path.abspath(__file__))
-    if count_stft:
+    if count_stft or count_chain:
+        said = ("print(f'stft_power launches {stft_power.launches}')\n" if count_stft else
+                "print(f'mh_chain launches {mh_chain.launches} {mh_chain.launches_mma}')\n")
         wrap = ("import runpy, sys\nfrom dvae_tpu_torch.ops import stft_power\n"
+                "from dvae_tpu_torch.enhance import mh_chain\n"
                 "sys.argv = sys.argv[1:]\n"
-                "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
-                "print(f'stft_power launches {stft_power.launches}')\n")
+                "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n" + said)
         cmd = [sys.executable, "-c", wrap, module, *argv]
     else:
         cmd = [sys.executable, "-m", module, *argv]
@@ -1917,8 +2034,9 @@ def run_module(module: str, argv: list, count_stft: bool = False) -> tuple:
     check(r.returncode == 0, f"{module} {' '.join(map(str, argv))} exited {r.returncode}:\n"
                              f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
     launches = None
-    if count_stft:
-        launches = int(r.stdout.strip().splitlines()[-1].split()[-1])
+    if count_stft or count_chain:
+        last = [int(v) for v in r.stdout.strip().splitlines()[-1].split()[2:]]
+        launches = last[0] if count_stft else tuple(last)
     return r.stdout, launches
 
 
@@ -2039,7 +2157,7 @@ def cli_chain_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str, keep: str
     against eager K steps, the K-step times and idle shares. Returns the
     kernels-line entries of this path and {"m1", "m2_info": the best
     ``.pt`` of the CLI-trained M1 and M2-info, copied to ``keep`` for phase
-    16}."""
+    16; "vad_npz": the VAD frame set, copied there for phase 17}."""
     import torch
 
     from dvae_tpu_torch.data.builders import build_frames, padded_batch
@@ -2284,10 +2402,12 @@ def cli_chain_phase(wavs, cleans, cuda_ms, agree, tag: str, work: str, keep: str
     stft_entry = time_stft(chunk_xp, False, "create_train_set chunk", n_b2, cuda_ms, tag,
                            phase=13)
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all")
-    kept = {"m1": os.path.join(keep, "cli_m1.pt"), "m2_info": os.path.join(keep, "cli_m2_info.pt")}
+    kept = {"m1": os.path.join(keep, "cli_m1.pt"), "m2_info": os.path.join(keep, "cli_m2_info.pt"),
+            "vad_npz": os.path.join(keep, "cli_vad_frames.npz")}
     shutil.copyfile(ckpt.best_checkpoint(os.path.join(models, runs["training_m1"][1]), "M1"),
                     kept["m1"])
     shutil.copyfile(info_best, kept["m2_info"])
+    shutil.copyfile(npz["vad_labels"], kept["vad_npz"])
     return [chain_entry("mh_chain (CLI-trained priors)", b1_v5 + b1_m2, seg), stft_entry], kept
 
 
@@ -3236,6 +3356,272 @@ def scoring_phase(kept: dict, said_f1: dict, cuda_ms, tag: str, work: str) -> li
     return [entry]
 
 
+# phase 17's decoders: the f32 body's depths and widths (as --h-dim takes
+# them; the decoder's hidden widths are their reverse) and the bf16 body's
+# two-layer widths past 128; the CLI chain's --h-dim
+DEPTH_F32 = ((128,), (128, 128, 128), (256, 128, 64), (100, 37, 9), (512, 512, 512))
+DEPTH_BF16 = ((256, 256), (512, 512))
+DEPTH_CLI = (256, 128, 64)
+
+
+def depth_phase(wavs, cleans, batch, frames, cuda_ms, plain_chain, agree, tag: str,
+                work: str, vad_npz: str) -> list:
+    """Phase 17 on the card: decoders of any depth and width up to 512
+    (ROADMAP A10) in both bodies, and the BatchNorm classifier (A16).
+    ``batch`` is the phase-3 batch as the engines see it (x2, mask) and
+    ``frames`` its frame counts; ``vad_npz`` is phase 13's VAD frame set.
+    Returns the kernels-line entries of the new shapes."""
+    import copy
+
+    import torch
+
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.mcem import McemConfig
+    from dvae_tpu_torch.enhance.mh_chain import (
+        extract_decoder_mlp,
+        lean_layout,
+        make_chain_noise,
+        mh_chain_reference,
+        run_mh_chain,
+    )
+    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import VAE
+    from dvae_tpu_torch.models.blocks import Classifier, init_xavier_
+    from dvae_tpu_torch.train import checkpoint as ckpt
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    x2b, maskb = batch
+    b, n_pad, f = x2b.shape
+    l, rows = 16, b * n_pad
+    mc = McemConfig()
+    shapes = [(h, False) for h in DEPTH_F32] + [(h, True) for h in DEPTH_BF16]
+
+    def model_of(h_dim):
+        return init_xavier_(VAE(f, l, h_dim), torch.Generator().manual_seed(SEED))
+
+    def body(fast):
+        return "bf16" if fast else "f32"
+
+    @contextlib.contextmanager
+    def no_plain_chain():
+        """The plain chain raises: CUDA tensors must take the kernel."""
+        real = mh_chain.mh_chain_reference
+
+        def plain(*args, **kw):
+            raise RuntimeError("the plain chain ran on CUDA tensors")
+
+        mh_chain.mh_chain_reference = plain
+        try:
+            yield
+        finally:
+            mh_chain.mh_chain_reference = real
+
+    models = os.path.join(work, "models")
+    hdim = "_".join(f"{h:03d}" for h in DEPTH_CLI)
+    run_name = f"ntcd_M1_nonorm_hdim_{hdim}_zdim_016_end_epoch_{CLI_EPOCHS + 1:03d}"
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # ---- 17d, first half: the depth-3 trainer CLI, a process of its own,
+        # while the checks below run
+        t_train = time.perf_counter()
+        training = pool.submit(run_module, "dvae_tpu_torch.cli.training_m1",
+                               ["--frames", vad_npz, "--models-root", models, "--end-epoch",
+                                str(CLI_EPOCHS + 1), "--steps-per-dispatch", "8",
+                                "--h-dim", *map(str, DEPTH_CLI)])
+
+        # ---- 17a. each body against its plain chain at the phase-3 batch's rows
+        gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+        x2 = torch.rand((rows, f), generator=gen, device=dev) + 0.05
+        vb = torch.rand((rows, f), generator=gen, device=dev) + 0.05
+        g = torch.rand((rows,), generator=gen, device=dev) + 0.5
+        z0 = 0.1 * torch.randn((rows, l), generator=gen, device=dev)
+        max_abs = {}
+        for h_dim, fast in shapes:
+            mats = extract_decoder_mlp(model_of(h_dim).to(dev), l)
+            for wf in (False, True):
+                said = []
+                noise = make_chain_noise(5, rows, l, gen, dev)
+                args = (mats, x2, vb, g, z0, None, noise, 2, 3, 0.0, wf, fast)
+                zk, *ok = run_mh_chain(*args)
+                zr, *orf = mh_chain_reference(*args)
+                sync()
+                check(torch.equal(zk, z0), f"{h_dim} {body(fast)}: the frozen chain moved")
+                if not wf:
+                    max_abs[h_dim, fast] = float((ok[0] - orf[0]).abs().max())
+                said += [agree(a, b_, fast, 1e-5, f"frozen {h_dim} {body(fast)} WF={wf}",
+                               sum(h_dim)) for a, b_ in zip(ok, orf)]
+                noise = make_chain_noise(12, rows, l, gen, dev)
+                args = (mats, x2, vb, g, z0, None, noise, 6, 6, 0.01, wf, fast)
+                zk, *ok = run_mh_chain(*args)
+                zr, *orf = mh_chain_reference(*args)
+                sync()
+                same = (zk - zr).abs().amax(-1) < 1e-4
+                share, moved = float(same.float().mean()), float((zk != z0).any(-1).float().mean())
+                check(share > 0.99 and moved > 0.5,
+                      f"live {h_dim} {body(fast)} WF={wf}: rows that end at the same z")
+                said += [agree(a[..., same, :], b_[..., same, :], fast, 1e-4,
+                               f"live {h_dim} {body(fast)} WF={wf}", sum(h_dim))
+                         for a, b_ in zip(ok, orf)]
+                layout = "lean" if lean_layout(mats, f, l, wf, fast) else "shared"
+                log(f"phase 17: {body(fast)} body, --h-dim {' '.join(map(str, h_dim))} "
+                    f"(decoder widths {mats.widths}), {'WF' if wf else 'E-step'} segments at "
+                    f"{rows} rows, {layout} layout: frozen {'; '.join(said[:len(ok)])}; live "
+                    f"{share:.4f} of rows end at the same z (limit 0.99), {moved:.3f} moved, on "
+                    f"them {'; '.join(said[len(ok):])}")
+
+        mats3 = extract_decoder_mlp(model_of((128, 128, 128)).to(dev), l)
+        cmats = mats3._replace(w1y=0.3 * torch.randn((2, 128), generator=gen, device=dev))
+        y = torch.rand((rows, 2), generator=gen, device=dev)
+        noise = make_chain_noise(3, rows, l, gen, dev)
+        said = []
+        for wf in (False, True):
+            _, *ok = run_mh_chain(cmats, x2, vb, g, z0, y, noise, 1, 2, 0.0, wf)
+            _, *orf = mh_chain_reference(cmats, x2, vb, g, z0, y, noise, 1, 2, 0.0, wf)
+            sync()
+            said += [agree(a, b_, False, 1e-5, f"conditioned depth 3 WF={wf}")
+                     for a, b_ in zip(ok, orf)]
+        log(f"phase 17: f32 body, depth 3 with a conditioned row bias (rows, 128), frozen "
+            f"E-step and WF segments: {'; '.join(said)}")
+        for h_dim, what in (((), "depth 0"), ((128,) * 9, "depth 9"), ((513,), "width 513")):
+            before = mh_chain.launches
+            try:
+                Enhancer(VAE(f, l, h_dim), EnhancerConfig())
+            except ValueError as e:
+                check("ROADMAP A10b" in str(e), f"{what}: {e}")
+            else:
+                raise RuntimeError(f"chip_smoke check failed: {what} did not raise")
+            check(mh_chain.launches == before, f"{what}: a launch before the raise")
+        log("phase 17: Enhancer raises ValueError naming ROADMAP A10b at depth 0, depth 9 and "
+            "width 513, before any launch")
+
+        # ---- 17b. the M1 Enhancer at B = 32 and the full budget, each shape
+        launches = {}
+        for h_dim, fast in shapes:
+            model = model_of(h_dim)
+            enh = Enhancer(model, EnhancerConfig())
+            mh_chain.launches = mh_chain.launches_mma = 0
+            t0 = time.perf_counter()
+            with no_plain_chain():
+                out = enh.enhance_batch(wavs, seed=SEED)
+            sync()
+            wall = time.perf_counter() - t0
+            n_all, n_mma = mh_chain.launches, mh_chain.launches_mma
+            launches[h_dim, fast] = n_all
+            finite = all(np.isfinite(s).all() and np.isfinite(n_).all() and len(s) == len(x)
+                         for (s, n_), x in zip(out, wavs)) and np.isfinite(enh.last_cost).all()
+            log(f"phase 17: enhance_batch B={B} --h-dim {' '.join(map(str, h_dim))}, default "
+                f"config: {n_all} mh_chain launches, {n_mma} of the bf16 body (expected niter + "
+                f"1 = {mc.niter + 1} of the {body(fast)} body), no plain chain; cost "
+                f"{enh.last_cost[0]:.5f} -> {enh.last_cost[-1]:.5f}; outputs finite: {finite}; "
+                f"{wall:.3f} s {tag}")
+            check(n_all == mc.niter + 1 and n_mma == (n_all if fast else 0),
+                  f"{h_dim}: launches of the {body(fast)} body")
+            check(finite, f"{h_dim}: finite outputs")
+            if h_dim in (DEPTH_F32[1], DEPTH_BF16[0]):
+                with torch.inference_mode():
+                    z0b = enh.model.encode(x2b, sample=False)[1]
+                frozen_vs_plain(model, McemConfig(var_rw=0.0), wavs, (x2b, z0b, maskb), frames,
+                                plain_chain, f"--h-dim {' '.join(map(str, h_dim))} "
+                                             f"{body(fast)}", 17)
+
+        # ---- 17c. every engine and ablation at depth 3, through the f32 body
+        engine_runs(model_of((128, 128, 128)), wavs, cleans, mc, (b, n_pad), False, 17)
+
+        # ---- 17e. Classifier(batch_norm=True) on the card against the CPU
+        cpu = Classifier(f, (128, 128), 1, batch_norm=True)
+        with torch.no_grad():
+            gb = torch.Generator().manual_seed(SEED + 18)
+            for bn in cpu.bn:
+                bn.weight.copy_(1 + 0.2 * torch.randn(bn.weight.shape, generator=gb))
+                bn.bias.copy_(0.2 * torch.randn(bn.bias.shape, generator=gb))
+                bn.running_mean.copy_(torch.rand(bn.running_mean.shape, generator=gb))
+                bn.running_var.copy_(0.5 + torch.rand(bn.running_var.shape, generator=gb))
+        card = copy.deepcopy(cpu).to(dev)
+        worst = 0.0
+        for shape in ((256, f), (4, 80, f)):
+            xc = torch.rand(shape, generator=gb)
+            with torch.no_grad():
+                for train in (False, True):
+                    got, want = card(xc.to(dev), train=train).cpu(), cpu(xc, train=train)
+                    worst = max(worst, float(((got - want).abs() / (want.abs() + 1e-5)).max()))
+                    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+            for (k, v), (_, w) in zip(card.state_dict().items(), cpu.state_dict().items()):
+                torch.testing.assert_close(v.cpu(), w, rtol=1e-4, atol=1e-6, msg=k)
+        log(f"phase 17: Classifier(513, (128, 128), 1, batch_norm=True) on the card against the "
+            f"CPU, eval and train mode on (256, 513) and (4, 80, 513): outputs and the running "
+            f"statistics after each train call within rtol 1e-4 (largest relative difference "
+            f"{worst:.3e})")
+
+        out, _ = training.result()
+    # ---- 17d. the depth-3 CLI chain: the training above, then evaluate_ntcd_m1
+    hist = epoch_metrics(out)
+    pts = ckpt.checkpoints(os.path.join(models, run_name), "M1_epoch_*.pt")
+    log(f"phase 17: training_m1 --h-dim {' '.join(map(str, DEPTH_CLI))} on phase 13's VAD "
+        f"frame set ({time.perf_counter() - t_train:.1f} s, a process of its own, beside the "
+        f"checks above): train elbo per epoch {[h['elbo'] for h in hist]}; {len(pts)} .pt")
+    check(len(hist) == CLI_EPOCHS and all(np.isfinite(list(h.values())).all() for h in hist),
+          f"training_m1 depth 3: epoch metrics {hist}")
+    check(hist[-1]["elbo"] < hist[0]["elbo"], "training_m1 depth 3: the elbo did not fall")
+    check(len(pts) == CLI_EPOCHS, f"training_m1 depth 3: {len(pts)} .pt files")
+    best = ckpt.best_checkpoint(os.path.join(models, run_name), "M1")
+    noisy = sweep_tree(work, 16, SEED + 11)
+    want = sorted(f"{os.path.splitext(p)[0]}{k}.wav" for p in noisy for k in ("_s_est", "_n_est"))
+    t0 = time.perf_counter()
+    _, (n_chain, n_mma) = run_module(
+        "dvae_tpu_torch.cli.evaluate_ntcd_m1",
+        ["--data-root", os.path.join(work, "data"), "--snr", "all", "--batch-size", "16",
+         "--checkpoint", str(best), "--h-dim", *map(str, DEPTH_CLI), "--output-dir",
+         os.path.join(work, "eval")], count_chain=True)
+    wall = time.perf_counter() - t0
+    files = sorted(os.path.relpath(os.path.join(d, x), os.path.join(work, "eval"))
+                   for d, _, xs in os.walk(os.path.join(work, "eval")) for x in xs)
+    batches = -(-len(noisy) // 16)
+    log(f"phase 17: evaluate_ntcd_m1 --h-dim {' '.join(map(str, DEPTH_CLI))} from {best.name} "
+        f"over {len(noisy)} utterances ({wall:.1f} s, a process of its own): {len(files)} "
+        f"files, {n_chain} mh_chain launches, {n_mma} of the bf16 body (expected {batches} "
+        f"batches x (niter + 1) = {batches * (mc.niter + 1)} of the f32 body)")
+    check(files == want and n_chain == batches * (mc.niter + 1) and n_mma == 0,
+          "evaluate_ntcd_m1 depth 3: outputs and f32-body launches")
+
+    # ---- 17f. times at the phase-3 batch's rows, each beside its bound
+    w_, h_, g_ = init_nmf(torch.Generator(device=dev).manual_seed(SEED), b, n_pad, f,
+                          mc.nmf_rank, mc.eps, device=dev)
+    planes = (x2b.reshape(rows, f), compute_vb(w_, h_).reshape(rows, f).contiguous(),
+              g_.reshape(rows).contiguous())
+    entries = []
+    for h_dim, fast in [((128, 128), True), ((128, 128), False)] + shapes:
+        mats = extract_decoder_mlp(model_of(h_dim).to(dev), l)
+        times = {}
+        for wf in (False, True):
+            n_burn = mc.burnin_wf if wf else mc.burnin_e_step
+            n_samp = mc.nsamples_wf if wf else mc.nsamples_e_step
+            noise = make_chain_noise(n_burn + n_samp, rows, l, gen, dev)
+            args = (mats, *planes, z0, None, noise, n_burn, n_samp, mc.var_rw, wf, fast)
+            k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=3)
+            p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=2)
+            work_ = chain_work(rows, f, l, mats.widths, n_burn, n_samp, wf)
+            b_ms, b_by = chain_bound_ms(work_, fast)
+            times[wf] = (k_ms, p_ms, b_ms, b_by)
+            log(f"phase 17: mh_chain {body(fast)} body, --h-dim {' '.join(map(str, h_dim))}, "
+                f"{'WF' if wf else 'E-step'} segment rows={rows} steps={n_burn}+{n_samp}: "
+                f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+                f"({work_[0] / 1e9:.2f} GFLOP of products, {work_[3] / 1e6:.1f} MB), kernel at "
+                f"{100 * b_ms / k_ms:.2f}% of bound {tag}")
+        if (h_dim, fast) in launches:
+            k_ms, p_ms, b_ms, b_by = times[False]  # the E-step segment
+            entries.append({
+                "name": f"mh_chain{'' if fast else '_f32'} (--h-dim "
+                        f"{' '.join(map(str, h_dim))})", "route": "cuda",
+                "source": "dvae_tpu_torch/csrc/mh_chain.cu",
+                "replaces": "dvae_tpu/enhance/pallas_mcem.py:112",
+                "launches": launches[h_dim, fast], "max_abs_err": max_abs[h_dim, fast],
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None})
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s in all")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -3244,7 +3630,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dvae_tpu_torch.enhance import mcem, mh_chain
-    from dvae_tpu_torch.enhance.mcem import McemConfig, run_mcem
+    from dvae_tpu_torch.enhance.mcem import McemConfig
     from dvae_tpu_torch.enhance.mh_chain import (
         extract_decoder_mlp,
         make_chain_noise,
@@ -3294,17 +3680,20 @@ def main() -> int:
         rel = (a - b).abs() / b.abs().clamp_min(1e-30)
         return float(rel.max()), float((rel < BF16_REL).float().mean())
 
-    def agree(a, b, fast, rtol, what):
+    def agree(a, b, fast, rtol, what, units=256):
         """Kernel vs plain of its precision: rtol for the f32 body, the bf16
-        rule for the tensor-core body. Returns the printed comparison."""
+        rule for the tensor-core body (its share limit for a decoder of
+        ``units`` hidden units, :func:`bf16_share_limit`). Returns the
+        printed comparison."""
         if not fast:
             err = rel_err(a, b)
             check(err < rtol, what)
             return f"max rel err {err:.3e} (limit {rtol:g})"
         worst, share = bf16_rule(a, b)
-        check(worst < BF16_MAX_REL and share >= BF16_SHARE, what)
+        limit = bf16_share_limit(units)
+        check(worst < BF16_MAX_REL and share >= limit, what)
         return (f"max rel err {worst:.3e} (limit {BF16_MAX_REL:g}), {share:.5f} of "
-                f"elements within {BF16_REL:g} (limit {BF16_SHARE})")
+                f"elements within {BF16_REL:g} (limit {limit:g})")
 
     rows = 4000  # not a multiple of the 16-row tile
     mats, x2, vb, g, z0 = chain_problem(rows)
@@ -3345,7 +3734,7 @@ def main() -> int:
                     f"z (limit 0.99), {moved:.3f} moved; on them {'; '.join(said)}")
 
     w1y = 0.3 * torch.randn((2, 128), generator=gen, device=dev)
-    cmats = (mats[0], w1y, *mats[2:])
+    cmats = mats._replace(w1y=w1y)
     y = torch.rand((rows, 2), generator=gen, device=dev)  # soft labels
     noise = make_chain_noise(1, rows, l, gen, dev)
     _, x2, vb, g, z0 = chain_problem(rows)
@@ -3422,40 +3811,8 @@ def main() -> int:
         check(mh_chain.launches == before, "the plain run launched the kernel")
 
     for fast in (True, False):
-        name = "bf16" if fast else "f32"
-        frozen = McemConfig(var_rw=0.0, fast_decoder=fast)
-        with torch.inference_mode():
-            rk = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen)
-            with plain_chain():
-                rp = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen)
-        sync()
-        mask_err, cost_err, part = frozen_agreement(rk, rp, maskb)
-        log(f"phase 3: {name} frozen-chain run_mcem kernel vs plain: max mask diff "
-            f"{mask_err:.3e} (limit 1e-3), max cost rel diff {cost_err:.3e} (limit 1e-4), "
-            f"|WFs + WFn - 1| <= {part:.3e} on valid frames (limit 1e-5)")
-        check(mask_err < 1e-3 and cost_err < 1e-4 and part < 1e-5,
-              f"{name} frozen run_mcem: kernel vs plain")
-
-        # float32 wire, device-side noise estimate; compared where the ISTFT's
-        # window normalizer is full (the first and last nfft samples of an
-        # utterance divide by a normalizer down to ~1e-10, as in the reference)
-        fcfg = EnhancerConfig(mcem=frozen, noise_from_partition=False, wire_dtype="float32")
-        enh_k = Enhancer(model, fcfg)
-        out_k = enh_k.enhance_batch(wavs, seed=SEED)
-        with plain_chain():
-            out_p = enh_k.enhance_batch(wavs, seed=SEED)
-        wave_err, part_err = 0.0, 0.0
-        nfft, hop = cfg.stft.nfft, cfg.stft.hop
-        for (sk_, nk_), (sp_, _), xx, fr in zip(out_k, out_p, wavs, frames):
-            peak = float(np.abs(xx).max())
-            core = slice(nfft, min(len(xx), (fr - 1) * hop + nfft) - nfft)
-            wave_err = max(wave_err, float(np.abs(sk_ - sp_)[core].max()) / peak)
-            part_err = max(part_err, float(np.abs(sk_ + nk_ - xx)[core].max()) / peak)
-        log(f"phase 3: {name} frozen-chain enhance_batch kernel vs plain: max |s_k - s_p| "
-            f"/ peak {wave_err:.3e} (limit 1e-3); Wiener partition max |s + n - x| / peak "
-            f"{part_err:.3e} on covered samples (limit 1e-4)")
-        check(wave_err < 1e-3 and part_err < 1e-4,
-              f"{name} frozen enhance_batch: kernel vs plain, partition")
+        frozen_vs_plain(model, McemConfig(var_rw=0.0, fast_decoder=fast), wavs,
+                        (x2b, z0b, maskb), frames, plain_chain, "bf16" if fast else "f32", 3)
         sync()
 
     # ---- 4. times at main-path shape
@@ -3478,7 +3835,6 @@ def main() -> int:
     g_r = g.reshape(rows_main).contiguous()
     x2_r = x2b.reshape(rows_main, f)
     z_r = z0b.reshape(rows_main, l).contiguous()
-    h1, h2 = enh.mats[0].shape[1], enh.mats[3].shape[1]
     times, max_abs = {}, {}
     for fast in (True, False):
         name = "bf16" if fast else "f32"
@@ -3490,7 +3846,7 @@ def main() -> int:
                     wf, fast)
             k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
             p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
-            work = chain_work(rows_main, f, l, h1, h2, n_burn, n_samp, wf)
+            work = chain_work(rows_main, f, l, enh.mats.widths, n_burn, n_samp, wf)
             b_ms, b_by = chain_bound_ms(work, fast)
             times[fast, wf] = (k_ms, p_ms, b_ms, b_by)
             log(f"phase 4: mh_chain {name} body, {'WF' if wf else 'E-step'} segment "
@@ -3555,6 +3911,9 @@ def main() -> int:
             audio_entries = audio_vad_phase(m2_vad, cuda_ms, agree, tag, work, said_f1)
             video_entries = video_vad_phase(m2_vad, cuda_ms, agree, tag, work, said_f1)
             scoring_entries = scoring_phase(dict(kept, m2=m2_vad), said_f1, cuda_ms, tag, work)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+            depth_entries = depth_phase(wavs, cleans, (x2b, maskb), frames, cuda_ms,
+                                        plain_chain, agree, tag, work, kept["vad_npz"])
     peem_profile(enh.mats, (x2b, z0b, maskb), cfg.mcem, tag)
 
     def m1_chain_entry(name, fast, n):
@@ -3568,7 +3927,8 @@ def main() -> int:
                                 m1_chain_entry("mh_chain_f32", False, launches_f32),
                                 *stft_entries, *cond_entries, *engine_entries,
                                 *serving_entries, *labelled_entries, *cli_entries,
-                                *audio_entries, *video_entries, *scoring_entries]}))
+                                *audio_entries, *video_entries, *scoring_entries,
+                                *depth_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -53,11 +53,14 @@ class McemConfig:
 
     ``fast_decoder`` selects the decoder's precision, in the chain kernel,
     the plain chain and PEEM's gradient alike: True (the default) rounds
-    both operands of its three products to bf16 and sums in f32, as the JAX
+    both operands of its products to bf16 and sums in f32, as the JAX
     package's ``make_mlp_decoder(fast=True)`` does (the kernel's
-    tensor-core body); False keeps them f32. The sample planes stay f32
-    either way: ``fast_stats`` is carried so a config means the same in
-    both packages, and is ignored here.
+    tensor-core body); False keeps them f32. It holds for decoders of two
+    hidden layers only: at any other depth the engines run in f32 whatever
+    it says, as the JAX package does (it swaps in its bf16 decoder only
+    where ``extract_decoder_mlp`` found two hidden layers). The sample
+    planes stay f32 either way: ``fast_stats`` is carried so a config means
+    the same in both packages, and is ignored here.
 
     ``peem_steps`` / ``peem_lr``: Adam steps on the latent per EM iteration
     and their learning rate (run_peem, run_peem_wf). ``pmcem_chains`` /
@@ -112,15 +115,17 @@ def make_generators(seed: int, device) -> tuple[torch.Generator, ...]:
 
 
 def _prep_em(mats, x2, mask, cfg: McemConfig, y, seed: int, nmf_init):
-    """The preamble every engine shares: f32 inputs; the three streams of
-    ``seed``, with the NMF init drawn from the first; the labels ``y``
-    folded into the decoder's first-layer row bias once for the run, at the
-    precision ``cfg.fast_decoder`` selects. Returns ``(x2, mask, (w, h, g),
-    folded mats, (em stream, wf stream))``."""
+    """The preamble every engine shares: the precision rule of
+    :class:`McemConfig` (``cfg.fast_decoder`` cleared unless the decoder
+    has two hidden layers); f32 inputs; the three streams of ``seed``, with
+    the NMF init drawn from the first; the labels ``y`` folded into the
+    decoder's first-layer row bias once for the run, at that precision.
+    Returns ``(x2, mask, (w, h, g), folded mats, (em stream, wf stream),
+    cfg)``."""
     if mats is None:
-        raise NotImplementedError(
-            "the engines need a two-hidden-layer MLP decoder; other decoders "
-            "need the tensor engine of a later PR (ROADMAP queue A10)")
+        raise ValueError("the engines need a model with a decoder")
+    if cfg.fast_decoder and len(mats.widths) != 2:
+        cfg = dataclasses.replace(cfg, fast_decoder=False)
     b, n, f = x2.shape
     dev = x2.device
     x2 = x2.to(torch.float32).contiguous()
@@ -132,7 +137,7 @@ def _prep_em(mats, x2, mask, cfg: McemConfig, y, seed: int, nmf_init):
         nmf_init = tuple(t.to(dev, torch.float32) for t in nmf_init)
     mats = fold_conditioning(mats, None if y is None else y.reshape(b * n, -1),
                              cfg.fast_decoder)
-    return x2, mask, nmf_init, mats, (g_em, g_wf)
+    return x2, mask, nmf_init, mats, (g_em, g_wf), cfg
 
 
 def _segment(mats, x2_r, vb, g, z, gen, n_burn: int, n_samples: int, cfg: McemConfig,
@@ -192,7 +197,8 @@ def run_mcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
         nmf_init: optional (W, H, g) replacing the random NMF init.
     The other engines take the same arguments.
     """
-    x2, mask, (w, h, g), mats, (g_em, g_wf) = _prep_em(mats, x2, mask, cfg, y, seed, nmf_init)
+    x2, mask, (w, h, g), mats, (g_em, g_wf), cfg = _prep_em(mats, x2, mask, cfg, y, seed,
+                                                             nmf_init)
     b, n, f = x2.shape
     x2_r = x2.reshape(b * n, f)
     z = z_init.to(torch.float32)
@@ -230,12 +236,13 @@ def run_pmcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
     iteration, the folded labels' row bias once per run (folded once, then
     repeated).
     """
-    x2, mask, (w, h, g), mats, (g_em, g_wf) = _prep_em(mats, x2, mask, cfg, y, seed, nmf_init)
+    x2, mask, (w, h, g), mats, (g_em, g_wf), cfg = _prep_em(mats, x2, mask, cfg, y, seed,
+                                                             nmf_init)
     b, n, f = x2.shape
     r, bn, l = cfg.pmcem_chains, b * n, z_init.shape[-1]
     x2_r = x2.reshape(bn, f).repeat(r, 1)
-    if mats[2].dim() == 2:  # the labels' row bias (B*N, H1)
-        mats = (mats[0], None, mats[2].repeat(r, 1), *mats[3:])
+    if mats.b1.dim() == 2:  # the labels' row bias (B*N, H1)
+        mats = mats._replace(b1=mats.b1.repeat(r, 1))
 
     def planes(w, h, g):
         return compute_vb(w, h).reshape(bn, f).repeat(r, 1), g.reshape(bn).repeat(r)
@@ -282,13 +289,13 @@ def run_peem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
     on copies of its inputs. With ``peem_steps=0`` the latent stays at
     ``z_init`` and this is :func:`run_em_fixed_z`.
     """
-    x2, mask, (w, h, g), mats, _ = _prep_em(mats, x2, mask, cfg, y, seed, nmf_init)
+    x2, mask, (w, h, g), mats, _, cfg = _prep_em(mats, x2, mask, cfg, y, seed, nmf_init)
     b1, b2, eps_adam = 0.9, 0.999, 1e-8
     with torch.inference_mode(False), torch.enable_grad():
         x2, mask, w, h, g, z = (t.clone() for t in (x2, mask, w, h, g,
                                                      z_init.to(torch.float32)))
-        mats = tuple(None if t is None else t.clone() for t in mats)
-        by = mats[2] if mats[2].dim() == 1 else mats[2].reshape(*z.shape[:2], -1)
+        mats = mats.map(torch.clone)
+        by = mats.b1 if mats.b1.dim() == 1 else mats.b1.reshape(*z.shape[:2], -1)
         dec = decoder_reference(mats, by, cfg.fast_decoder)
 
         def energy_grad(z, vb, g):
@@ -343,7 +350,7 @@ def run_peem_wf(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor
     segment from PEEM's latent (``burnin_wf`` + ``nsamples_wf`` steps, as
     run_mcem's tail), on the WF stream. Same NMF init as the other engines
     of this seed; stochastic through the WF segment only."""
-    x2, mask, nmf_init, mats, (_, g_wf) = _prep_em(mats, x2, mask, cfg, y, seed, nmf_init)
+    x2, mask, nmf_init, mats, (_, g_wf), cfg = _prep_em(mats, x2, mask, cfg, y, seed, nmf_init)
     res = run_peem(mats, x2, z_init, mask, seed, cfg, None, nmf_init)
     wfs, wfn, z = _wf_expectation(mats, x2, mask, res.z, res.w, res.h, res.g, g_wf, cfg)
     return McemResult(wfs, wfn, res.cost, z, res.w, res.h, res.g)

@@ -17,8 +17,10 @@ The chain's randomness is an input, ``noise`` of shape
 ``(n_steps, rows, L + 1)``: L standard normals, then one ``log u`` with
 ``u ~ U[1e-38, 1)``. :func:`make_chain_noise` draws it for the main path.
 
-``fast_decoder`` selects the decoder's precision on both paths. False: its
-three products in f32 (the kernel's f32 body). True: as the JAX package's
+The decoder is any tanh MLP of 1 to :data:`MAX_DEPTH` hidden layers of 1
+to :data:`MAX_WIDTH` units (:class:`DecoderMats`). ``fast_decoder`` selects
+its precision on both paths. False: its products in f32 (the kernel's f32
+body, any depth). True, at depth 2 only: as the JAX package's
 ``make_mlp_decoder(fast=True)``, each product rounds both operands to bf16
 and sums in f32 (the kernel's tensor-core body, which reads the weights
 packed by :func:`pack_decoder_mma`); biases, tanh, exp and the energy stay
@@ -30,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +41,9 @@ from dvae_tpu_torch.enhance.nmf import VX_FLOOR
 
 # dynamic shared memory one H100 block may use
 _MAX_SMEM = 232448
+#: the decoders the kernel serves: 1 to MAX_DEPTH hidden layers (the
+#: kernel's MAX_HIDDEN) of 1 to MAX_WIDTH units each
+MAX_DEPTH, MAX_WIDTH = 8, 512
 
 # kernel launches since the last reset (only the launch in run_mh_chain
 # counts): all of them, and those of the bf16 tensor-core body
@@ -59,26 +65,70 @@ def _find_decoder(module):
     return None
 
 
-def extract_decoder_mlp(model, z_dim: int):
-    """The decoder's dense weights as ``(w1z, w1y, b1, w2, b2, w3, b3)``,
-    each (in, out) f32 and contiguous; ``w1y`` is the conditioning block of
-    the first layer (None for M1). None when the model has no decoder or
-    it is not the two-hidden-layer MLP the kernel supports."""
+class DecoderMats(NamedTuple):
+    """A decoder's dense weights, each (in, out) f32 and contiguous: the
+    first hidden layer split into its latent and conditioning blocks, then
+    each further hidden layer, then the output layer."""
+
+    w1z: torch.Tensor         # (L, H1)
+    w1y: torch.Tensor | None  # (Y, H1), None for an unconditioned decoder
+    b1: torch.Tensor          # (H1,), or a (rows, H1) row bias from fold_conditioning
+    hidden: tuple             # ((w (H_{i-1}, H_i), b (H_i,)), ...) for layers 2..D
+    w_out: torch.Tensor       # (H_D, F)
+    b_out: torch.Tensor       # (F,)
+
+    @property
+    def widths(self) -> tuple:
+        """The hidden widths (H1, ..., H_D)."""
+        return (self.w1z.shape[1], *(w.shape[1] for w, _ in self.hidden))
+
+    def map(self, fn) -> "DecoderMats":
+        """The same layout with ``fn`` applied to every tensor."""
+        return DecoderMats(fn(self.w1z), None if self.w1y is None else fn(self.w1y),
+                           fn(self.b1), tuple((fn(w), fn(b)) for w, b in self.hidden),
+                           fn(self.w_out), fn(self.b_out))
+
+
+def check_widths(widths) -> None:
+    """Raise ValueError unless the kernel serves these hidden widths."""
+    if not 1 <= len(widths) <= MAX_DEPTH or not all(1 <= h <= MAX_WIDTH for h in widths):
+        raise ValueError(
+            f"decoder hidden widths {tuple(widths)}: the MH-chain kernel serves 1 to "
+            f"{MAX_DEPTH} hidden layers of 1 to {MAX_WIDTH} units (ROADMAP A10b)")
+
+
+def decoder_widths(model):
+    """The hidden widths of the model's decoder, None when it has none.
+    Reads shapes only, so it does no device work; raises ValueError (via
+    :func:`check_widths`) for a decoder the kernel does not serve."""
     dec = _find_decoder(model)
-    if dec is None or len(getattr(dec, "hidden", ())) != 2:
+    if dec is None:
         return None
-    l1, l2 = dec.hidden
-    w1 = l1.weight.detach().t().float()
-    if w1.shape[0] < z_dim:
+    widths = tuple(layer.out_features for layer in getattr(dec, "hidden", ()))
+    check_widths(widths)
+    return widths
+
+
+def extract_decoder_mlp(model, z_dim: int):
+    """The decoder's weights as :class:`DecoderMats` (``w1y`` None for
+    M1), or None when the model has no decoder. Raises ValueError for a
+    decoder the kernel does not serve (:func:`check_widths`)."""
+    if decoder_widths(model) is None:
         return None
-    w1z = w1[:z_dim].contiguous()
-    w1y = w1[z_dim:].contiguous() if w1.shape[0] > z_dim else None
+    dec = _find_decoder(model)
 
     def c(t):
         return t.detach().float().contiguous()
 
-    return (w1z, w1y, c(l1.bias), c(l2.weight.t()), c(l2.bias),
-            c(dec.reconstruction.weight.t()), c(dec.reconstruction.bias))
+    first, *rest = dec.hidden
+    w1 = first.weight.detach().t().float()
+    if w1.shape[0] < z_dim:
+        raise ValueError(f"the decoder's first layer takes {w1.shape[0]} inputs, "
+                         f"fewer than z_dim={z_dim}")
+    w1z = w1[:z_dim].contiguous()
+    w1y = w1[z_dim:].contiguous() if w1.shape[0] > z_dim else None
+    return DecoderMats(w1z, w1y, c(first.bias), tuple((c(m.weight.t()), c(m.bias)) for m in rest),
+                       c(dec.reconstruction.weight.t()), c(dec.reconstruction.bias))
 
 
 def make_chain_noise(n_steps: int, rows: int, l: int, generator: torch.Generator,
@@ -100,7 +150,7 @@ def _fold_bias(mats, y, rows, fast_decoder=False):
     (``None`` rows => the plain bias, shared by every row). With
     ``fast_decoder`` both operands of the product are rounded to bf16, as
     the JAX package multiplies ``[z, y]`` by ``[w1z; w1y]`` in bf16."""
-    w1z, w1y, b1 = mats[:3]
+    w1y, b1 = mats.w1y, mats.b1
     if (y is None) != (w1y is None):
         raise ValueError(
             "conditioning mismatch: y is "
@@ -124,22 +174,29 @@ def fold_conditioning(mats, y, fast_decoder: bool = False):
     if y is None:
         _fold_bias(mats, None, 0)
         return mats
-    by = _fold_bias(mats, y, y.shape[0], fast_decoder)
-    return (mats[0], None, by, *mats[3:])
+    return mats._replace(w1y=None, b1=_fold_bias(mats, y, y.shape[0], fast_decoder))
 
 
-def _check(x2, vb, g, z, noise, mats, n_burn, n_samples):
+def _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder):
     rows, f = x2.shape
     l = z.shape[-1]
-    w1z, _, b1, w2, b2, w3, b3 = mats
-    h1, h2 = w1z.shape[1], w2.shape[1]
+    widths = mats.widths
+    check_widths(widths)
+    if fast_decoder and len(widths) != 2:
+        raise ValueError(f"the bf16 body serves two hidden layers, not {len(widths)}: "
+                         "other depths run in f32 (ROADMAP A10b)")
+    h1 = widths[0]
     want = {
         "x2": (x2, (rows, f)), "vb": (vb, (rows, f)), "g": (g, (rows,)),
         "z": (z, (rows, l)), "noise": (noise, (n_burn + n_samples, rows, l + 1)),
         # b1 is shared by every row, or a row bias from fold_conditioning
-        "w1z": (w1z, (l, h1)), "b1": (b1, (rows, h1) if b1.dim() == 2 else (h1,)),
-        "w2": (w2, (h1, h2)), "b2": (b2, (h2,)), "w3": (w3, (h2, f)), "b3": (b3, (f,)),
+        "w1z": (mats.w1z, (l, h1)),
+        "b1": (mats.b1, (rows, h1) if mats.b1.dim() == 2 else (h1,)),
+        "w_out": (mats.w_out, (widths[-1], f)), "b_out": (mats.b_out, (f,)),
     }
+    for i, (w, b) in enumerate(mats.hidden):
+        want[f"hidden[{i}].w"] = (w, (widths[i], widths[i + 1]))
+        want[f"hidden[{i}].b"] = (b, (widths[i + 1],))
     dev = x2.device
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
@@ -161,18 +218,19 @@ def decoder_reference(mats, by, fast_decoder: bool = False):
     package's ``make_mlp_decoder(mats, fast)``. Differentiable in ``z``:
     with ``fast_decoder`` its bf16 casts round the cotangents to bf16 in
     the backward pass, as the transpose of JAX's casts does."""
-    w1z, _, _, w2, b2, w3, b3 = mats
     if fast_decoder:
-        w1z, w2, w3 = _bf16(w1z), _bf16(w2), _bf16(w3)
         rnd = _bf16
     else:
         def rnd(a):
             return a
+    w1z, w_out = rnd(mats.w1z), rnd(mats.w_out)
+    hidden = [(rnd(w), b) for w, b in mats.hidden]
 
     def dec(z):
         h = torch.tanh(rnd(z) @ w1z + by)
-        h = torch.tanh(rnd(h) @ w2 + b2)
-        return torch.exp(rnd(h) @ w3 + b3)
+        for w, b in hidden:
+            h = torch.tanh(rnd(h) @ w + b)
+        return torch.exp(rnd(h) @ w_out + mats.b_out)
 
     return dec
 
@@ -181,7 +239,7 @@ def mh_chain_reference(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int
                        var_rw: float, wf_mode: bool = False, fast_decoder: bool = False):
     """Plain PyTorch chain: the same contract as :func:`run_mh_chain`,
     written as a step loop on tensors (any device)."""
-    _check(x2, vb, g, z, noise, mats, n_burn, n_samples)
+    _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder)
     dec = decoder_reference(mats, _fold_bias(mats, y, x2.shape[0], fast_decoder),
                             fast_decoder)
     l = z.shape[-1]
@@ -225,23 +283,37 @@ def build_library() -> ctypes.CDLL:
     source version), load it and declare its C interface (once per
     process)."""
     lib = load_library("mh_chain.cu")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
     for launch in (lib.mh_chain_launch, lib.mh_chain_mma_launch):
-        launch.argtypes = [p] * 15 + [i] * 9 + [ctypes.c_float, p]
+        launch.argtypes = ([p] * 6 + [pp, pp, ctypes.POINTER(i), i, p, p] + [p] * 4 + [i] * 8
+                           + [ctypes.c_float, p])
         launch.restype = i
-    lib.mh_chain_smem_bytes.argtypes = [i] * 6
+    lib.mh_chain_smem_bytes.argtypes = [i, i, ctypes.POINTER(i), i, i, i, i]
     lib.mh_chain_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
+def _ints(values):
+    return (ctypes.c_int * MAX_DEPTH)(*values)
+
+
 @functools.cache
-def _check_smem(f: int, l: int, h1: int, h2: int, wf_mode: bool, mma: bool) -> None:
-    """Raise unless one block's shared memory holds these widths (checked
-    once each)."""
-    smem = build_library().mh_chain_smem_bytes(f, l, h1, h2, int(wf_mode), int(mma))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"widths need {smem} B of shared memory per block "
-                         f"(> {_MAX_SMEM}): F={f} L={l} H=({h1}, {h2})")
+def _layout(f: int, l: int, widths: tuple, wf_mode: bool, mma: bool) -> bool:
+    """Whether one block keeps the WF sums and the first layer's row bias
+    in global memory (the lean layout) instead of shared memory: only when
+    the shared layout does not fit. Raises ValueError when neither fits
+    (decided once for each shape)."""
+    lib = build_library()
+
+    def smem(lean):
+        return lib.mh_chain_smem_bytes(f, l, _ints(widths), len(widths), int(wf_mode),
+                                       int(mma), int(lean))
+
+    for lean in (False, True):
+        if smem(lean) <= _MAX_SMEM:
+            return lean
+    raise ValueError(f"widths need {smem(True)} B of shared memory per block "
+                     f"(> {_MAX_SMEM}): F={f} L={l} H={widths}")
 
 
 def pack_mma_weight(w: torch.Tensor, n_multiple: int) -> torch.Tensor:
@@ -265,16 +337,54 @@ def _pad(v: torch.Tensor, multiple: int) -> torch.Tensor:
     return torch.nn.functional.pad(v, (0, -n % multiple)).contiguous()
 
 
+def _body_widths(mats, fast_decoder: bool) -> tuple:
+    """The hidden widths the body takes: as they are for the bf16 body (it
+    pads them to 16 itself), each odd one plus a zero unit for the f32 body
+    (:func:`pad_decoder_f32`)."""
+    return mats.widths if fast_decoder else tuple(h + h % 2 for h in mats.widths)
+
+
+def lean_layout(mats, f: int, l: int, wf_mode: bool, fast_decoder: bool) -> bool:
+    """Whether the kernel runs this decoder's segments at F ``f`` and L
+    ``l`` in the lean layout (the WF sums and the row bias in global
+    memory, see ``csrc/mh_chain.cu``)."""
+    return _layout(f, l, _body_widths(mats, fast_decoder), wf_mode, fast_decoder)
+
+
+def _zero_pad(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``w`` zero-padded to (rows, cols); ``w`` itself when it has that
+    shape."""
+    k, n = w.shape
+    if (k, n) == (rows, cols):
+        return w
+    return torch.nn.functional.pad(w, (0, cols - n, 0, rows - k)).contiguous()
+
+
 def pack_decoder_mma(mats):
-    """The decoder as the kernel's bf16 body reads it: ``(w1p, w2p, w3p,
-    b2p, b3p)``. L, H1 and H2 are padded to multiples of 16 and F to a
-    multiple of 8 with zero weights and zero biases; a padded hidden unit
-    is tanh(0) = 0 and meets zero rows in the next layer, so the padding
-    changes nothing. The first layer's bias is the row bias ``by``, which
-    the kernel pads itself."""
-    w1z, _, _, w2, b2, w3, b3 = mats
-    return (pack_mma_weight(w1z, 16), pack_mma_weight(w2, 16), pack_mma_weight(w3, 8),
-            _pad(b2, 16), _pad(b3, 8))
+    """The decoder as the kernel's bf16 body reads it: ``(layers, w_out,
+    b_out)``, ``layers`` the hidden layers' ``(packed weight, padded
+    bias)`` pairs (the first layer's bias None: it is the row bias ``by``,
+    which the kernel pads itself). L and the hidden widths are padded to
+    multiples of 16 and F to a multiple of 8 with zero weights and zero
+    biases; a padded hidden unit is tanh(0) = 0 and meets zero rows in the
+    next layer, so the padding changes nothing."""
+    layers = ((pack_mma_weight(mats.w1z, 16), None),
+              *((pack_mma_weight(w, 16), _pad(b, 16)) for w, b in mats.hidden))
+    return layers, pack_mma_weight(mats.w_out, 8), _pad(mats.b_out, 8)
+
+
+def pad_decoder_f32(mats):
+    """The decoder as the kernel's f32 body reads it, in the layout of
+    :func:`pack_decoder_mma`: the body reads two weight columns at a time,
+    so each odd hidden width gets one zero unit (a zero column and bias,
+    and a zero row in the next layer). Weights of even widths are kept as
+    they are."""
+    even = _body_widths(mats, False)
+    ins = (mats.w1z.shape[0], *even[:-1])
+    ws = (mats.w1z, *(w for w, _ in mats.hidden))
+    bs = (None, *(_pad(b, 2) for _, b in mats.hidden))
+    layers = tuple((_zero_pad(w, k, h), b) for w, b, k, h in zip(ws, bs, ins, even))
+    return layers, _zero_pad(mats.w_out, even[-1], mats.w_out.shape[1]), mats.b_out
 
 
 # packs of the last few decoders, each kept with its source tensors so that
@@ -283,18 +393,18 @@ _PACKS: dict = {}
 _PACKS_KEPT = 4
 
 
-def _packed(mats):
-    """:func:`pack_decoder_mma` of ``mats``, cached on the tensors' address,
-    version counter and shape: the launches of one enhanced batch pack once,
-    and new or updated weights pack anew."""
-    w1z, _, _, w2, b2, w3, b3 = mats
-    src = (w1z, w2, b2, w3, b3)
-    key = tuple((t.data_ptr(), t._version, tuple(t.shape)) for t in src)
+def _packed(mats, fast_decoder):
+    """:func:`pack_decoder_mma` (or :func:`pad_decoder_f32`) of ``mats``,
+    cached on the tensors' address, version counter and shape: the launches
+    of one enhanced batch pack once, and new or updated weights pack anew."""
+    src = (mats.w1z, *(t for layer in mats.hidden for t in layer), mats.w_out, mats.b_out)
+    key = (fast_decoder, *((t.data_ptr(), t._version, tuple(t.shape)) for t in src))
     hit = _PACKS.get(key)
     if hit is None:
         if len(_PACKS) >= _PACKS_KEPT:
             del _PACKS[next(iter(_PACKS))]
-        hit = _PACKS[key] = (src, pack_decoder_mma(mats))
+        pack = pack_decoder_mma if fast_decoder else pad_decoder_f32
+        hit = _PACKS[key] = (src, pack(mats))
     return hit[1]
 
 
@@ -303,24 +413,20 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
     global launches, launches_mma
     rows, f = x2.shape
     l = z.shape[-1]
-    w1z, _, _, w2, b2, w3, b3 = mats
-    h1, h2 = w1z.shape[1], w2.shape[1]
-    # the f32 body's layers 1 and 2 read 2 weight columns at a time as one
-    # 8-byte load
-    if not fast_decoder and (h1 % 2 or h2 % 2 or w1z.data_ptr() % 8 or w2.data_ptr() % 8):
-        raise ValueError(f"the kernel needs even hidden widths and 8-byte aligned "
-                         f"w1z/w2, got H=({h1}, {h2})")
-    _check_smem(f, l, h1, h2, wf_mode, fast_decoder)
-    lib = build_library()
+    layers, w_out, b_out = _packed(mats, fast_decoder)
+    widths = _body_widths(mats, fast_decoder)
     if fast_decoder:
-        launch = lib.mh_chain_mma_launch
-        w1p, w2p, w3p, b2, b3 = _packed(mats)
-        weights = (w1p.data_ptr(), w2p.data_ptr(), b2.data_ptr(), w3p.data_ptr(),
-                   b3.data_ptr())
+        launch = build_library().mh_chain_mma_launch
     else:
-        launch = lib.mh_chain_launch
-        weights = (w1z.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
-                   b3.data_ptr())
+        launch = build_library().mh_chain_launch
+        if widths[0] != by.shape[-1]:  # an odd first width: one zero bias column
+            by = torch.nn.functional.pad(by, (0, 1)).contiguous()
+        # the hidden layers read 2 weight columns at a time as one 8-byte load
+        if any(w.data_ptr() % 8 for w, _ in layers):
+            raise ValueError("the f32 body needs 8-byte aligned hidden weights")
+    lean = lean_layout(mats, f, l, wf_mode, fast_decoder)
+    ws = (ctypes.c_void_p * MAX_DEPTH)(*(w.data_ptr() for w, _ in layers))
+    bs = (ctypes.c_void_p * MAX_DEPTH)(*(None if b is None else b.data_ptr() for _, b in layers))
     z_out = torch.empty((rows, l), device=x2.device)
     if wf_mode:
         outs = (torch.empty((rows, f), device=x2.device),
@@ -329,12 +435,13 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
     else:
         outs = (torch.empty((n_samples, rows, f), device=x2.device),)
         samples_p, wfs_p, wfn_p = outs[0].data_ptr(), None, None
-    by_stride = h1 if by.dim() == 2 else 0
+    by_stride = by.shape[1] if by.dim() == 2 else 0
     with torch.cuda.device(x2.device):
         err = launch(
             x2.data_ptr(), vb.data_ptr(), g.data_ptr(), z.data_ptr(), by.data_ptr(),
-            noise.data_ptr(), *weights, z_out.data_ptr(), samples_p, wfs_p, wfn_p,
-            rows, f, l, h1, h2, n_burn + n_samples, n_burn, by_stride, int(wf_mode),
+            noise.data_ptr(), ws, bs, _ints(widths), len(widths), w_out.data_ptr(),
+            b_out.data_ptr(), z_out.data_ptr(), samples_p, wfs_p, wfn_p, rows, f, l,
+            n_burn + n_samples, n_burn, by_stride, int(wf_mode), int(lean),
             math.sqrt(var_rw), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"mh_chain kernel launch failed: cudaError {err}")
@@ -354,13 +461,13 @@ def run_mh_chain(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int,
         y: optional (rows, Y) conditioning labels, folded into the first
             layer's bias.
         noise: (n_burn + n_samples, rows, L + 1), see :func:`make_chain_noise`.
-        fast_decoder: bf16 products with f32 sums (the tensor-core body) if
-            True, f32 products if False.
+        fast_decoder: bf16 products with f32 sums (the tensor-core body,
+            two hidden layers only) if True, f32 products if False.
     Returns:
         E-step mode: ``(z_final (rows, L), vs_samples (n_samples, rows, F))``.
         WF mode: ``(z_final, wfs_sum (rows, F), wfn_sum (rows, F))``.
     """
-    _check(x2, vb, g, z, noise, mats, n_burn, n_samples)
+    _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder)
     if x2.device.type == "cpu":
         return mh_chain_reference(mats, x2, vb, g, z, y, noise, n_burn, n_samples,
                                   var_rw, wf_mode, fast_decoder)

@@ -36,7 +36,7 @@ from dvae_tpu_torch.enhance.mcem import (
     run_peem_wf,
     run_pmcem,
 )
-from dvae_tpu_torch.enhance.mh_chain import extract_decoder_mlp
+from dvae_tpu_torch.enhance.mh_chain import decoder_widths, extract_decoder_mlp
 from dvae_tpu_torch.ops.stft import (
     StftConfig,
     istft_realimag_masked,
@@ -118,6 +118,9 @@ class Enhancer:
                                       "XLA-specific and is not ported")
         if mesh is not None:
             raise NotImplementedError(f"mesh={mesh!r}: " + _LATER.format(14))
+        # the decoder's widths, checked before any device work
+        if decoder_widths(model) is None:
+            raise ValueError("the E-step engines need a model with a decoder")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -125,10 +128,6 @@ class Enhancer:
         self._norm = None if cfg.norm is None else tuple(
             torch.as_tensor(np.asarray(a, np.float32).reshape(-1), device=self.device)
             for a in cfg.norm)
-        if self.mats is None:
-            raise NotImplementedError(
-                "the E-step engines need a two-hidden-layer decoder; "
-                + _LATER.format(10))
         self.last_cost = None
 
     def reload(self, state_dict) -> None:

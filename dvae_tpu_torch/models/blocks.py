@@ -87,6 +87,39 @@ class Decoder(nn.Module):
         return torch.exp(self.reconstruction(self.hidden(z)))
 
 
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm`` over the last axis, in plain PyTorch.
+
+    ``train=True`` normalizes with the batch's statistics over every axis
+    but the last (mean, and the biased variance as ``E[x^2] - E[x]^2``
+    floored at 0) and moves the running statistics toward them with
+    momentum 0.99; ``train=False`` normalizes with the running statistics.
+    Unlike ``torch.nn.BatchNorm1d``: the momentum weighs the old average,
+    the running variance takes the biased batch variance, and a (B, T, H)
+    input needs no transpose. Names follow torch's: ``weight`` (Flax's
+    ``scale``), ``bias``, ``running_mean``, ``running_var``."""
+
+    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x, train: bool = False):
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
 class _ReluMLP(nn.Module):
     """``hidden.{i}`` Linear layers with relu after each, then the Linear
     head ``output_layer``: the classifiers' shared body."""
@@ -106,20 +139,24 @@ class _ReluMLP(nn.Module):
 class Classifier(_ReluMLP):
     """relu MLP -> Linear -> sigmoid (per-label Bernoulli probabilities).
 
-    ``batch_norm=True`` (the reference's interleaved BatchNorm1d blocks) is
-    not ported: no trainer enables it, and ``convert.state_dict_from_jax``
-    cannot name BatchNorm leaves."""
+    ``batch_norm=True`` makes each block ``relu(BN(relu(W x)))``, with the
+    :class:`BatchNorm` ``bn.{i}`` beside ``hidden.{i}``, as the JAX
+    package's ``Classifier`` (and the reference's interleaved
+    ``[Linear, BatchNorm1d]`` list) computes it. ``train`` is Flax's flag:
+    batch statistics (and updated running statistics) when True, running
+    statistics when False; ``nn.Module.training`` is not read."""
 
     def __init__(self, in_features: int, hidden: Sequence[int], y_dim: int,
                  batch_norm: bool = False):
-        if batch_norm:
-            raise NotImplementedError(
-                "Classifier(batch_norm=True) is not served by this port yet "
-                "(a later PR, ROADMAP queue A16)")
         super().__init__(in_features, hidden, y_dim)
+        self.bn = nn.ModuleList(BatchNorm(h) for h in hidden) if batch_norm else None
 
-    def forward(self, x):
-        return torch.sigmoid(self.logits(x))
+    def forward(self, x, train: bool = False):
+        if self.bn is None:
+            return torch.sigmoid(self.logits(x))
+        for layer, bn in zip(self.hidden, self.bn):
+            x = torch.relu(bn(torch.relu(layer(x)), train))
+        return torch.sigmoid(self.output_layer(x))
 
 
 class Classifier2Classes(_ReluMLP):

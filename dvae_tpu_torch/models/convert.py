@@ -6,9 +6,12 @@ maps to the reference's torch name by
 
 * ``layers_{i}`` -> ``{i}``          (ModuleList index of a hidden MLP)
 * ``hidden_{i}`` -> ``hidden.{i}``   (classifier layers)
+* ``bn_{i}`` -> ``bn.{i}``           (a classifier's BatchNorm layers)
 
 and ``kernel``/``bias`` -> transposed ``weight`` (torch stores (out, in)) /
-``bias``. Takes nested dicts of numpy arrays, so no JAX is needed.
+``bias``; a BatchNorm's ``scale``/``bias`` params -> ``weight``/``bias`` and
+its ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+Takes nested dicts of numpy arrays, so no JAX is needed.
 """
 
 from __future__ import annotations
@@ -24,21 +27,23 @@ def _torch_name(path) -> str:
     for p in path:
         if p.startswith("layers_") and p[7:].isdigit():
             parts.append(p[7:])
-        elif re.fullmatch(r"hidden_\d+", p):
-            parts.extend(["hidden", p.split("_")[1]])
+        elif re.fullmatch(r"(hidden|bn)_\d+", p):
+            parts.extend(p.split("_"))
         else:
             parts.append(p)
     return ".".join(parts)
 
 
-def _walk_dense(tree, path=()):
-    """Yield (path, leaf_dict) for every Dense-style {kernel, bias} leaf."""
-    if isinstance(tree, dict) and "kernel" in tree and "bias" in tree:
+def _walk(tree, keys, path=()):
+    """Yield (path, leaf_dict) for every dict holding all of ``keys``
+    (a Dense's {kernel, bias}, a BatchNorm's {scale, bias} or {mean,
+    var})."""
+    if isinstance(tree, dict) and all(k in tree for k in keys):
         yield path, tree
         return
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _walk_dense(tree[k], path + (k,))
+            yield from _walk(tree[k], keys, path + (k,))
 
 
 def _count_leaves(tree) -> int:
@@ -48,24 +53,36 @@ def _count_leaves(tree) -> int:
 
 
 def state_dict_from_jax(params) -> dict[str, torch.Tensor]:
-    """Flax params (nested dicts of arrays) -> reference-named f32 tensors.
+    """Flax variables (nested dicts of arrays: ``params`` and, for a
+    BatchNorm classifier, ``batch_stats``; or the params tree alone) ->
+    reference-named f32 tensors.
 
-    Raises ValueError when the tree holds leaves that are not Dense
-    kernel/bias pairs (the naming rule cannot express them)."""
+    Raises ValueError when the trees hold leaves that are not Dense
+    kernel/bias pairs, BatchNorm scale/bias pairs or BatchNorm statistics
+    (the naming rule cannot express them)."""
     tree = params.get("params", params)
+    stats = params.get("batch_stats", {}) if "params" in params else {}
     sd = {}
     covered = 0
-    for path, leaf in _walk_dense(tree):
+    for path, leaf in _walk(tree, ("kernel", "bias")):
         name = _torch_name(path)
         sd[name + ".weight"] = torch.from_numpy(
             np.ascontiguousarray(np.asarray(leaf["kernel"], np.float32).T))
         sd[name + ".bias"] = torch.from_numpy(np.array(leaf["bias"], np.float32))
         covered += len(leaf)
-    total = _count_leaves(tree)
+    for src, keys, names in ((tree, ("scale", "bias"), ("weight", "bias")),
+                             (stats, ("mean", "var"), ("running_mean", "running_var"))):
+        for path, leaf in _walk(src, keys):
+            name = _torch_name(path)
+            for key, suffix in zip(keys, names):
+                sd[f"{name}.{suffix}"] = torch.from_numpy(np.array(leaf[key], np.float32))
+            covered += len(leaf)
+    total = _count_leaves(tree) + _count_leaves(stats)
     if covered != total:
         raise ValueError(
             f"conversion covers {covered} of {total} array leaves: the tree "
-            "holds non-Dense parameters the reference naming cannot express")
+            "holds non-Dense, non-BatchNorm parameters the reference naming cannot "
+            "express")
     return sd
 
 

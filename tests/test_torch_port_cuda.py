@@ -37,6 +37,7 @@ from dvae_tpu_torch.data.datasets import FrameDataset
 from dvae_tpu_torch.enhance import mh_chain
 from dvae_tpu_torch.enhance.mcem import McemConfig, run_mcem
 from dvae_tpu_torch.enhance.mh_chain import (
+    DecoderMats,
     extract_decoder_mlp,
     make_chain_noise,
     mh_chain_reference,
@@ -117,8 +118,8 @@ def test_cuda_live_chain_matches_plain(cuda, h_dim, wf_mode, fast):
 @PRECISIONS
 def test_cuda_conditioned_bias_and_mismatch(cuda, fast):
     mats, x2, vb, g, z0, gen = _problem(cuda, 512, seed=2)
-    w1y = 0.3 * torch.randn((2, mats[0].shape[1]), generator=gen, device=cuda)
-    cmats = (mats[0], w1y, *mats[2:])
+    w1y = 0.3 * torch.randn((2, mats.widths[0]), generator=gen, device=cuda)
+    cmats = mats._replace(w1y=w1y)
     y = torch.rand((512, 2), generator=gen, device=cuda)  # soft labels
     noise = make_chain_noise(1, 512, L, gen, cuda)
     _, sk = run_mh_chain(cmats, x2, vb, g, z0, y, noise, 0, 1, 0.0, fast_decoder=fast)
@@ -403,8 +404,9 @@ def test_cuda_build_frames_one_launch_matches_cpu(cuda):
 @PRECISIONS
 def test_mh_chain_dispatch_raises_off_cpu_and_cuda(fast):
     x2 = torch.zeros((32, F), device="meta")
-    mats = (torch.zeros((L, 128), device="meta"), None, *(
-        torch.zeros(shape, device="meta") for shape in ((128,), (128, 128), (128,), (128, F), (F,))))
+    w1z, b1, w2, b2, w3, b3 = (torch.zeros(shape, device="meta") for shape in (
+        (L, 128), (128,), (128, 128), (128,), (128, F), (F,)))
+    mats = DecoderMats(w1z, None, b1, ((w2, b2),), w3, b3)
     before = mh_chain.launches
     with pytest.raises(ValueError, match="unsupported device meta"):
         run_mh_chain(mats, x2, x2, torch.zeros(32, device="meta"),

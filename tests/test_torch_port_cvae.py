@@ -27,6 +27,7 @@ from dvae_tpu.train.torch_import import export_torch_state_dict
 from dvae_tpu_torch.enhance.mh_chain import decoder_reference, extract_decoder_mlp, fold_conditioning
 from dvae_tpu_torch.models.convert import state_dict_from_jax
 from _torch_port import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_port_mh_chain import mats_from_jax, mats_tensors
 
 X, Z, H = 513, 16, (32, 32)
 FAMILIES = ["CVAE", "CVAE_v2", "CVAE_v3", "CVAE_v4", "DisentangledVAE", "EncoderClassifier"]
@@ -138,8 +139,11 @@ def test_classifier_blocks_match_flax(y_dim):
         assert got.shape == want.shape == ((6, y_dim) if tcls is tmodels.Classifier
                                            else (6, 2, y_dim))
         _close(got, want)
-    with pytest.raises(NotImplementedError, match="A16"):
-        tmodels.Classifier(X, H, y_dim, batch_norm=True)
+    # batch_norm=True (ROADMAP A16) adds bn.{i} beside hidden.{i}; its
+    # numbers are held against Flax in test_torch_port_depth.py
+    bn = tmodels.Classifier(X, H, y_dim, batch_norm=True)
+    assert {f"bn.{i}.{k}" for i in range(len(H))
+            for k in ("weight", "bias", "running_mean", "running_var")} <= set(bn.state_dict())
 
 
 def test_reference_aliases():
@@ -159,9 +163,9 @@ def test_extract_decoder_mlp_finds_each_familys_decoder(name):
     if name == "EncoderClassifier":
         assert pm is None and jax_extract(params, Z) is None
         return
-    for a, b in zip(pm, jax_extract(params, Z)):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert pm[1].shape == (513, H[-1])
+    for a, b in zip(mats_tensors(pm), mats_tensors(mats_from_jax(jax_extract(params, Z)))):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert pm.w1y.shape == (513, H[-1])
 
 
 @pytest.mark.parametrize("labels", ["ibm", "soft"])
@@ -176,9 +180,8 @@ def test_bf16_folded_decoder_at_ibm_width_matches_jax(labels):
     if labels == "ibm":
         y = (y > 0.5).astype(np.float32)
     want = np.asarray(make_mlp_decoder(jmats, fast=True)(jnp.asarray(np.concatenate([z, y], -1))))
-    tmats = fold_conditioning(tuple(torch.from_numpy(np.array(m)) for m in jmats),
-                              torch.from_numpy(y), fast_decoder=True)
-    assert tmats[1] is None and tmats[2].shape == (rows, 128)
-    got = decoder_reference(tmats, tmats[2], fast_decoder=True)(torch.from_numpy(z)).numpy()
+    tmats = fold_conditioning(mats_from_jax(jmats), torch.from_numpy(y), fast_decoder=True)
+    assert tmats.w1y is None and tmats.b1.shape == (rows, 128)
+    got = decoder_reference(tmats, tmats.b1, fast_decoder=True)(torch.from_numpy(z)).numpy()
     rel = np.abs(got - want) / np.abs(want)
     assert rel.max() < 5e-3 and (rel < 1e-5).mean() >= 0.99, (rel.max(), (rel < 1e-5).mean())

@@ -33,6 +33,7 @@ from dvae_tpu.enhance.pallas_mcem import run_mh_chain as jax_chain
 from dvae_tpu.models import CVAE as JaxCVAE
 from dvae_tpu.models import VAE as JaxVAE
 from dvae_tpu_torch.enhance.mh_chain import (
+    DecoderMats,
     _fold_bias,
     decoder_reference,
     extract_decoder_mlp,
@@ -59,8 +60,18 @@ def t(a):
     return torch.from_numpy(np.array(a, np.float32))
 
 
-def torch_mats(jmats):
-    return tuple(None if m is None else t(m) for m in jmats)
+def mats_from_jax(jmats):
+    """The port's ``DecoderMats`` of the JAX package's two-hidden-layer
+    tuple ``(w1z, w1y, b1, w2, b2, w3, b3)``."""
+    w1z, w1y, b1, w2, b2, w3, b3 = (None if m is None else t(m) for m in jmats)
+    return DecoderMats(w1z, w1y, b1, ((w2, b2),), w3, b3)
+
+
+def mats_tensors(mats):
+    """Every array of a ``DecoderMats`` in order (``w1y`` None when absent),
+    for comparing two of them."""
+    return [mats.w1z, mats.w1y, mats.b1, *(a for layer in mats.hidden for a in layer),
+            mats.w_out, mats.b_out]
 
 
 def problem(seed, h_dim=(32, 32)):
@@ -98,11 +109,14 @@ def test_extract_decoder_mlp_matches_jax(m1):
     _, params, tm, *_ = m1
     jm = jax_extract(params, L)
     pm = extract_decoder_mlp(tm, L)
-    assert pm[1] is None and jm[1] is None
-    for a, b in zip(jm, pm):
+    assert pm.w1y is None and jm[1] is None
+    for a, b in zip(mats_tensors(mats_from_jax(jm)), mats_tensors(pm)):
         if a is not None:
-            np.testing.assert_array_equal(np.asarray(a), b.numpy())
-    assert extract_decoder_mlp(VAE(F, L, (32,)), L) is None
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    # one hidden layer: the JAX kernel has no weights for it, the port's
+    # kernel takes it (depths 1 to 8, ROADMAP A10)
+    one = extract_decoder_mlp(VAE(F, L, (32,)), L)
+    assert one.widths == (32,) and one.hidden == () and one.w_out.shape == (32, F)
 
 
 @pytest.mark.parametrize("wf_mode", [False, True], ids=["estep", "wf"])
@@ -146,10 +160,10 @@ def test_conditioned_chain_matches_jax(m1):
     *_, x2, vb, g, z0 = m1
     model, params, jmats = _cvae_mats(5)
     y = (np.random.default_rng(3).uniform(size=(ROWS, 2)) > 0.5).astype(np.float32)
-    (jz, js), (pz, ps) = run_both(jmats, torch_mats(jmats), x2, vb, g, z0, y,
+    (jz, js), (pz, ps) = run_both(jmats, mats_from_jax(jmats), x2, vb, g, z0, y,
                                   jax.random.PRNGKey(1), 2, 2, 0.01, False)
     np.testing.assert_allclose(ps, js, rtol=RTOL, atol=ATOL)
-    _, (_, p0) = run_both(jmats, torch_mats(jmats), x2, vb, g, z0, y,
+    _, (_, p0) = run_both(jmats, mats_from_jax(jmats), x2, vb, g, z0, y,
                           jax.random.PRNGKey(0), 0, 1, 0.0, False)
     want = np.asarray(model.apply(params, jnp.concatenate([z0, y], axis=-1),
                                   method="decode"))
@@ -164,7 +178,7 @@ def test_conditioning_mismatch_raises(m1):
         run_mh_chain(extract_decoder_mlp(tm, L), *args, torch.ones((ROWS, 2)), noise, 0, 1, 0.0)
     _, _, jmats = _cvae_mats(8)
     with pytest.raises(ValueError, match="conditioning mismatch"):
-        run_mh_chain(torch_mats(jmats), *args, None, noise, 0, 1, 0.0)
+        run_mh_chain(mats_from_jax(jmats), *args, None, noise, 0, 1, 0.0)
 
 
 def test_bad_inputs_raise(m1):
@@ -213,7 +227,7 @@ def test_fast_decoder_matches_jax(conditioned):
         _, params, *_ = problem(4, h_dim=(128, 128))
         jmats, y, zin = jax_extract(params, L), None, z
     want = np.asarray(make_mlp_decoder(jmats, fast=True)(jnp.asarray(zin)))
-    tmats = torch_mats(jmats)
+    tmats = mats_from_jax(jmats)
     by = _fold_bias(tmats, None if y is None else t(y), rows, fast_decoder=True)
     got = decoder_reference(tmats, by, fast_decoder=True)(t(z)).numpy()
     assert_bf16_close(got, want)

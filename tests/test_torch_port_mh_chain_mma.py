@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from dvae_tpu_torch.enhance.mh_chain import (
+    DecoderMats,
     _fold_bias,
     decoder_reference,
     pack_decoder_mma,
@@ -138,9 +139,11 @@ def test_fragment_products_equal_bf16_products(widths):
 
 def test_pack_sizes_at_m1_widths():
     """W1 4 KB, W2 32 KB, W3 (128 x 520) 133,120 B; biases padded to 16 / 8."""
-    mats = (torch.randn(16, 128), None, torch.randn(128), torch.randn(128, 128),
-            torch.randn(128), torch.randn(128, 513), torch.randn(513))
-    w1p, w2p, w3p, b2p, b3p = pack_decoder_mma(mats)
+    mats = DecoderMats(torch.randn(16, 128), None, torch.randn(128),
+                       ((torch.randn(128, 128), torch.randn(128)),), torch.randn(128, 513),
+                       torch.randn(513))
+    ((w1p, b1p), (w2p, b2p)), w3p, b3p = pack_decoder_mma(mats)
+    assert b1p is None
     sizes = [t.numel() * t.element_size() for t in (w1p, w2p, w3p)]
     assert sizes == [4096, 32768, 133120]
     assert all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in (w1p, w2p, w3p))
@@ -168,10 +171,12 @@ def test_fragment_decoder_matches_plain_bf16_decoder(widths):
     w1, w2, w3 = (rng.standard_normal((k, n)).astype(np.float32) / np.sqrt(k)
                   for k, n in ((l, h1), (h1, h2), (h2, f)))
     b1, b2, b3 = (0.1 * rng.standard_normal(n).astype(np.float32) for n in (h1, h2, f))
-    mats = tuple(torch.from_numpy(m) for m in (w1, b1, w2, b2, w3, b3))
-    mats = (mats[0], None, *mats[1:])
+    w1, b1, w2, b2, w3, b3 = (torch.from_numpy(m) for m in (w1, b1, w2, b2, w3, b3))
+    mats = DecoderMats(w1, None, b1, ((w2, b2),), w3, b3)
+    ((w1p, _), (w2p, b2p)), w3p, b3p = pack_decoder_mma(mats)
     w1p, w2p, w3p, b2p, b3p = (t.float().numpy().astype(np.float64)
-                               for t in pack_decoder_mma(mats))
+                               for t in (w1p, w2p, w3p, b2p, b3p))
+    b1 = b1.numpy()
     z = rng.standard_normal((16, l)).astype(np.float32)
     l16, h1p, h2p = (-(-n // 16) * 16 for n in (l, h1, h2))
 
