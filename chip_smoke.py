@@ -225,7 +225,22 @@ Phases, in order; any failure exits non-zero:
    ``Classifier(batch_norm=True)`` on the card against the CPU in both
    modes with its running statistics; then each shape's E-step and WF
    segment times (CUDA events) beside their bounds, and both bodies at
-   128 128 again, each with the card's name and power limit.
+   128 128 again, each with the card's name and power limit;
+18. data parallelism (ROADMAP A14) and the AV fusion study (A18), after
+   phase 17, on phases 14-15's tree: the M1 ``Enhancer`` on ``make_mesh()``
+   against no mesh on the phase-3 batch at the full budget, bitwise, with
+   niter + 1 launches; on a two-shard mesh of this one card
+   (``Mesh([cuda:0, cuda:0])``), frozen chain, against the unsharded run
+   within 1e-4 of each utterance's peak, with 2 x (niter + 1) launches of
+   half the rows; ``training_m1 --data-parallel --steps-per-dispatch 8``
+   and ``train_audio_net --data-parallel`` as processes under a torchrun
+   environment of world size 1 (NCCL; the all-reduce inside the CUDA
+   graphs), their checkpoints and epoch logs bitwise those of the runs
+   without the flag, B2's launches counted; ``training_m1 --multihost``
+   there failing loudly; ``av_fusion_study --train --epochs 2``; these six
+   processes side by side; then B1 at a shard's rows and B2 at the
+   data-parallel VAD batch against their plain versions and timed, each
+   with the card's name and power limit.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -2012,13 +2027,12 @@ def write_raw_tree(raw: str, splits: dict) -> dict:
     return paths
 
 
-def run_module(module: str, argv: list, count_stft: bool = False,
-               count_chain: bool = False) -> tuple:
-    """``python -m module *argv`` as a subprocess from the repo's root; with
-    ``count_stft`` (``count_chain``) through a wrapper that prints the
-    process's B2 launches (B1 launches, all and the bf16 body's) at its end.
-    Returns (stdout, B2 launches or (B1 launches, bf16 ones) or None); a
-    non-zero exit fails."""
+def spawn_module(module: str, argv: list, count_stft: bool = False, count_chain: bool = False,
+                 env: dict | None = None) -> subprocess.Popen:
+    """``python -m module *argv`` started as a subprocess from the repo's
+    root (``env`` added to this process's); with ``count_stft``
+    (``count_chain``) through a wrapper that prints the process's B2
+    launches (B1 launches, all and the bf16 body's) at its end."""
     root = os.path.dirname(os.path.abspath(__file__))
     if count_stft or count_chain:
         said = ("print(f'stft_power launches {stft_power.launches}')\n" if count_stft else
@@ -2027,17 +2041,38 @@ def run_module(module: str, argv: list, count_stft: bool = False,
                 "from dvae_tpu_torch.enhance import mh_chain\n"
                 "sys.argv = sys.argv[1:]\n"
                 "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n" + said)
-        cmd = [sys.executable, "-c", wrap, module, *argv]
+        cmd = [sys.executable, "-c", wrap, module, *map(str, argv)]
     else:
-        cmd = [sys.executable, "-m", module, *argv]
-    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
-    check(r.returncode == 0, f"{module} {' '.join(map(str, argv))} exited {r.returncode}:\n"
-                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        cmd = [sys.executable, "-m", module, *map(str, argv)]
+    return subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=None if env is None else {**os.environ, **env})
+
+
+def collect_module(proc: subprocess.Popen, what: str, count_stft: bool = False,
+                   count_chain: bool = False) -> tuple:
+    """Wait for a :func:`spawn_module` process (killed after 600 s).
+    Returns (stdout, B2 launches or (B1 launches, bf16 ones) or None); a
+    non-zero exit fails."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{out[-2000:]}\n"
+                                f"{err[-4000:]}")
     launches = None
     if count_stft or count_chain:
-        last = [int(v) for v in r.stdout.strip().splitlines()[-1].split()[2:]]
+        last = [int(v) for v in out.strip().splitlines()[-1].split()[2:]]
         launches = last[0] if count_stft else tuple(last)
-    return r.stdout, launches
+    return out, launches
+
+
+def run_module(module: str, argv: list, count_stft: bool = False,
+               count_chain: bool = False) -> tuple:
+    """:func:`spawn_module`, then :func:`collect_module`."""
+    return collect_module(spawn_module(module, argv, count_stft, count_chain),
+                          f"{module} {' '.join(map(str, argv))}", count_stft, count_chain)
 
 
 def epoch_metrics(stdout: str) -> list:
@@ -3622,6 +3657,278 @@ def depth_phase(wavs, cleans, batch, frames, cuda_ms, plain_chain, agree, tag: s
     return entries
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def torchrun_env() -> dict:
+    """The variables torchrun gives a group of one process on this card,
+    and a deterministic cuBLAS workspace (both runs of a pair get it)."""
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(free_port()), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def _same_tree(a, b) -> bool:
+    """Two loaded checkpoints (tensors in dicts and lists) equal, tensors
+    bitwise."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_same_tree, a, b))
+    return a == b
+
+
+def same_run_dirs(a: str, b: str, what: str) -> int:
+    """Every checkpoint (``.pt``, ``.opt.pt``, ``.json``) of run dir ``b``
+    equal to ``a``'s, the tensors bitwise, and the epoch logs line for line
+    but the wall-clock ``Epoch: N (t s)`` lines. Returns the files held."""
+    import torch
+
+    names = sorted(f for f in os.listdir(a) if f.endswith((".pt", ".json", ".log")))
+    check(names and names == sorted(f for f in os.listdir(b)
+                                    if f.endswith((".pt", ".json", ".log"))),
+          f"{what}: run dirs hold other files: {names} / {sorted(os.listdir(b))}")
+    for name in names:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if name.endswith(".pt"):
+            ta, tb = (torch.load(q, map_location="cpu", weights_only=True) for q in (pa, pb))
+            check(_same_tree(ta, tb), f"{what}: {name} differs")
+        else:
+            with open(pa) as fa, open(pb) as fb:
+                ka = [x for x in fa if not x.startswith("Epoch: ")]
+                kb = [x for x in fb if not x.startswith("Epoch: ")]
+            check(ka == kb, f"{what}: {name} differs")
+    return len(names)
+
+
+def parallel_phase(model, wavs, cuda_ms, tag: str, work: str, tree: str, vad_npz: str,
+                   chain_times: dict) -> list:
+    """Phase 18 on the card: data parallelism (ROADMAP A14) and the AV
+    fusion study (A18). The M1 ``Enhancer`` on ``make_mesh()`` against no
+    mesh on the phase-3 batch at the full budget, bitwise; a two-shard mesh
+    on this one card, ``Mesh([cuda:0, cuda:0])``, frozen chain against the
+    unsharded run at JAX's limit (1e-4 of each utterance's peak), with
+    2 x (niter + 1) B1 launches of half the rows; ``training_m1
+    --data-parallel`` (K = 8, the NCCL all-reduce inside the CUDA graphs)
+    and ``train_audio_net --data-parallel`` as processes under a torchrun
+    environment of world size 1, each against the run without the flag,
+    checkpoints and epoch logs bitwise, B2's launches counted; ``training_m1
+    --multihost`` there failing loudly; and ``av_fusion_study`` on phases
+    14-15's tree (``tree``), all those processes side by side. Then B1 at
+    the shard's rows and B2 at the data-parallel VAD batch, against their
+    plain versions and timed. Returns the kernels-line entries."""
+    import torch
+
+    from dvae_tpu_torch.data.catalog import ntcd_timit
+    from dvae_tpu_torch.data.builders import NOISY_STATS
+    from dvae_tpu_torch.data.datasets import UtteranceDataset
+    from dvae_tpu_torch.enhance import mcem, mh_chain
+    from dvae_tpu_torch.enhance.mcem import McemConfig
+    from dvae_tpu_torch.enhance.mh_chain import make_chain_noise, mh_chain_reference, run_mh_chain
+    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.ops.stft import StftConfig, pad_signal
+    from dvae_tpu_torch.parallel import Mesh, make_mesh
+    from dvae_tpu_torch.train.sequence import pad_utterances
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    data = os.path.join(tree, "data")
+    proc = os.path.join(data, "subset", "processed")
+    stats = os.path.join(proc, NOISY_STATS + ".npz")
+    models = os.path.join(work, "models")
+
+    # ---- 18c, started first: the trainer pairs, the loud --multihost and the
+    # fusion study as processes, side by side with 18a-b
+    m1_args = ["--frames", vad_npz, "--end-epoch", str(CLI_EPOCHS + 1),
+               "--steps-per-dispatch", "8", "--run-name", "m1"]
+    vad_args = ["--data-root", data, "--end-epoch", "2", "--std-norm", "--stats-h5", stats,
+                "--run-name", "vad"]
+    det = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    jobs = {
+        "training_m1": spawn_module("dvae_tpu_torch.cli.training_m1", [
+            *m1_args, "--models-root", os.path.join(models, "plain")], env=det),
+        "training_m1 --data-parallel": spawn_module("dvae_tpu_torch.cli.training_m1", [
+            *m1_args, "--models-root", os.path.join(models, "dp"), "--data-parallel"],
+            env=torchrun_env()),
+        "train_audio_net": spawn_module("dvae_tpu_torch.cli.train_audio_net", [
+            *vad_args, "--models-root", os.path.join(models, "plain")], count_stft=True,
+            env=det),
+        "train_audio_net --data-parallel": spawn_module("dvae_tpu_torch.cli.train_audio_net", [
+            *vad_args, "--models-root", os.path.join(models, "dp"), "--data-parallel"],
+            count_stft=True, env=torchrun_env()),
+        "training_m1 --multihost": spawn_module("dvae_tpu_torch.cli.training_m1", [
+            *m1_args, "--models-root", os.path.join(models, "mh"), "--multihost"],
+            env=torchrun_env()),
+        "av_fusion_study": spawn_module("dvae_tpu_torch.cli.av_fusion_study", [
+            "--data-root", data, "--models-root", os.path.join(work, "study"), "--train",
+            "--epochs", "2", "--out", os.path.join(work, "study.json")]),
+    }
+    t_jobs = time.perf_counter()
+
+    # ---- 18a. make_mesh() against no mesh, the phase-3 batch, full budget
+    cfg = EnhancerConfig()
+    mesh = make_mesh()
+    check(mesh.devices == (torch.device("cuda", 0),) and mesh.size == torch.cuda.device_count(),
+          f"make_mesh() on this card: {mesh!r}")
+    plain_out = Enhancer(model, cfg).enhance_batch(wavs, seed=SEED)
+    enh = Enhancer(model, cfg, mesh=mesh)
+    mh_chain.launches = mh_chain.launches_mma = 0
+    mesh_out = enh.enhance_batch(wavs, seed=SEED)
+    n_mesh = mh_chain.launches_mma
+    want = cfg.mcem.niter + 1
+    check(n_mesh == mh_chain.launches == want, f"make_mesh() Enhancer: {n_mesh} launches")
+    check(all(np.array_equal(a, c) and np.array_equal(b, d)
+              for (a, b), (c, d) in zip(plain_out, mesh_out)), "make_mesh() Enhancer differs")
+    log(f"phase 18: Enhancer(mesh=make_mesh()) on {mesh!r}: the phase-3 batch (B={B}, full "
+        f"budget) bitwise the run without a mesh, {n_mesh} bf16-body launches (niter + 1) {tag}")
+
+    # ---- 18b. two shards on this one card, frozen chain
+    frozen = EnhancerConfig(mcem=McemConfig(var_rw=0.0), wire_dtype="float32")
+    rows_seen = []
+
+    def seen(*a, **kw):
+        rows_seen.append(a[1].shape[0])
+        return run_mh_chain(*a, **kw)
+
+    one = Enhancer(model, frozen).enhance_batch(wavs, seed=SEED)
+    two_enh = Enhancer(model, frozen, mesh=Mesh([dev.type + ":0"] * 2))
+    mh_chain.launches = mh_chain.launches_mma = 0
+    mcem.run_mh_chain = seen
+    try:
+        two = two_enh.enhance_batch(wavs, seed=SEED)
+    finally:
+        mcem.run_mh_chain = run_mh_chain
+    n_two = mh_chain.launches_mma
+    full_rows = enh._prepare(wavs, None, None)[4].numel()
+    check(n_two == mh_chain.launches == 2 * want and rows_seen == [full_rows // 2] * (2 * want),
+          f"two-shard mesh: {n_two} launches, rows {sorted(set(rows_seen))}")
+    worst = max(float(np.abs(c - a).max() / (np.abs(a).max() + 1e-9))
+                for (a, _), (c, _) in zip(one, two))
+    check(worst <= 1e-4, f"two shards vs unsharded, frozen chain: {worst:.3e} of the peak")
+    check(all(np.isfinite(c).all() and np.isfinite(n).all() for c, n in two),
+          "two shards: finite outputs")
+    walls = {}
+    for name, e in (("unsharded", Enhancer(model, cfg)), ("two shards", Enhancer(
+            model, cfg, mesh=Mesh([dev.type + ":0"] * 2)))):
+        w = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            e.enhance_batch(wavs, seed=SEED)
+            w.append(time.perf_counter() - t0)
+        walls[name] = w
+    log(f"phase 18: Mesh([cuda:0, cuda:0]) frozen chain (wire float32): {n_two} bf16-body "
+        f"launches of {full_rows // 2} rows (2 x (niter + 1)), against the unsharded run max "
+        f"|s_2 - s_1| {worst:.3e} of each utterance's peak (limit 1e-4); enhance_batch at the "
+        f"default config, two shards on one card {', '.join(f'{t:.4f}' for t in walls['two shards'])}"
+        f" s against unsharded {', '.join(f'{t:.4f}' for t in walls['unsharded'])} s (these "
+        f"launches, while 18c's processes share the card) {tag}")
+
+    # ---- 18c. the processes
+    mh = jobs.pop("training_m1 --multihost")
+    out = {name: collect_module(p, name, count_stft=name.startswith("train_audio_net"))
+           for name, p in jobs.items()}
+    try:
+        _, mh_err = mh.communicate(timeout=600)
+    finally:
+        if mh.poll() is None:
+            mh.kill()
+            mh.wait()
+    check(mh.returncode != 0 and "--multihost was requested" in mh_err and "torchrun" in mh_err,
+          f"--multihost at world size 1 exited {mh.returncode}: {mh_err[-1500:]}")
+    jobs_s = time.perf_counter() - t_jobs
+    n_m1 = same_run_dirs(os.path.join(models, "plain", "m1"), os.path.join(models, "dp", "m1"),
+                         "training_m1 --data-parallel")
+    n_vad = same_run_dirs(os.path.join(models, "plain", "vad"), os.path.join(models, "dp", "vad"),
+                          "train_audio_net --data-parallel")
+    logs = {k: [x for x in out[k][0].splitlines() if x.startswith(("epoch ", "  valid:"))]
+            for k in ("train_audio_net", "train_audio_net --data-parallel")}
+    check(logs["train_audio_net"] and logs["train_audio_net"] == logs[
+        "train_audio_net --data-parallel"], f"train_audio_net logs differ: {logs}")
+    n_b2, n_b2_dp = out["train_audio_net"][1], out["train_audio_net --data-parallel"][1]
+    train_ds = UtteranceDataset([(os.path.join(proc, n), os.path.join(proc, c)) for n, c in
+                                 ntcd_timit.proc_noisy_clean_pair_dict(
+                                     proc + "/", "train", "subset", "vad_labels", True).items()])
+    valid_n = len(ntcd_timit.proc_noisy_clean_pair_dict(proc + "/", "validation", "subset",
+                                                        "vad_labels", True))
+    per_epoch = -(-len(train_ds) // VAD_BATCH) + -(-valid_n // VAD_BATCH)
+    check(n_b2 == n_b2_dp == per_epoch, f"B2 launches {n_b2} / {n_b2_dp}, one per batch "
+                                        f"({per_epoch})")
+    with open(os.path.join(work, "study.json")) as fh:
+        study = json.load(fh)
+    f1 = {m: study["f1_per_condition"][m]["overall_mean_f1"] for m in ("audio", "video", "av")}
+    check(study["protocol"]["budgets"]["epochs"] == 2 and all(
+        study["training"][m]["epochs_trained"] == 1 for m in f1) and all(
+        0.0 <= v <= 1.0 for v in f1.values()), f"av_fusion_study: {study}")
+    log(f"phase 18: under a torchrun environment of world size 1 (NCCL): training_m1 "
+        f"--data-parallel --steps-per-dispatch 8 (the all-reduce in the CUDA graphs) and "
+        f"train_audio_net --data-parallel LSTMVad(513, 1024, 2), each bitwise the run without "
+        f"the flag ({n_m1} and {n_vad} checkpoint and log files, the epoch logs but their wall "
+        f"times), {n_b2_dp} stft_power launches in the flagged VAD run (one per batch, as "
+        f"without); training_m1 --multihost there exited {mh.returncode} naming torchrun; "
+        f"av_fusion_study --train --epochs 2 on phases 14-15's tree: conditions "
+        f"{study['protocol']['conditions']}, mean F1 per modality {f1}, trainings "
+        f"{ {k: v for k, v in study['training'].items() if k.endswith('_s')} } s; the six "
+        f"processes side by side in {jobs_s:.1f} s {tag}")
+
+    # ---- 18d. B1 at the shard's rows, B2 at the data-parallel VAD batch
+    x2b, z0b, maskb = chain_times["batch"]
+    half = B // 2
+    n_pad = maskb.shape[1]
+    rows = half * n_pad
+    f, l, mc = 513, 16, cfg.mcem
+    w_, h_, g_ = init_nmf(torch.Generator(device=dev).manual_seed(SEED), half, n_pad, f,
+                          mc.nmf_rank, mc.eps, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    noise = make_chain_noise(mc.burnin_e_step + mc.nsamples_e_step, rows, l, gen, dev)
+    args = (enh.mats, x2b[:half].reshape(rows, f), compute_vb(w_, h_).reshape(rows, f)
+            .contiguous(), g_.reshape(rows).contiguous(), z0b[:half].reshape(rows, l)
+            .contiguous(), None, noise, mc.burnin_e_step, mc.nsamples_e_step, mc.var_rw,
+            False, True)
+    k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=10, warm=2)
+    p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=3)
+    work_ = chain_work(rows, f, l, enh.mats.widths, mc.burnin_e_step, mc.nsamples_e_step, False)
+    b_ms, b_by = chain_bound_ms(work_, True)
+    fargs = (*args[:9], 0.0, False, True)
+    _, sk = run_mh_chain(*fargs)
+    _, sr = mh_chain_reference(*fargs)
+    sync()
+    max_abs = float((sk - sr).abs().max())
+    log(f"phase 18: mh_chain bf16 body, E-step segment at a two-shard mesh's shard ({half} x "
+        f"{n_pad} = {rows} rows, steps {mc.burnin_e_step}+{mc.nsamples_e_step}): kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} (kernel at "
+        f"{100 * b_ms / k_ms:.2f}%); the full batch's segment (phase 4) "
+        f"{chain_times['k_ms']:.4f} ms; frozen segment kernel vs plain max abs err "
+        f"{max_abs:.3e} {tag}")
+    stft_cfg = StftConfig(center=True)
+    xp = pad_signal(torch.from_numpy(pad_utterances(train_ds, range(min(VAD_BATCH, len(train_ds))),
+                                                   stft_cfg)[0])
+                    .to(dev), stft_cfg).contiguous()
+    b2 = time_stft(xp, True, "data-parallel VAD batch", n_b2_dp, cuda_ms, tag, phase=18)
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s in all {tag}")
+    return [{"name": "mh_chain (make_mesh() Enhancer)", "route": "cuda",
+             "source": "dvae_tpu_torch/csrc/mh_chain.cu",
+             "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": n_mesh,
+             "max_abs_err": chain_times["max_abs"], "ms": chain_times["k_ms"],
+             "plain_ms": chain_times["p_ms"], "bound_ms": chain_times["b_ms"],
+             "bound_by": chain_times["b_by"], "library_ms": None},
+            {"name": "mh_chain (two-shard mesh, one card)", "route": "cuda",
+             "source": "dvae_tpu_torch/csrc/mh_chain.cu",
+             "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": n_two,
+             "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None}, b2]
+
+
 def main() -> int:
     import torch
 
@@ -3907,13 +4214,19 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
             cli_entries, kept = cli_chain_phase(wavs, cleans, cuda_ms, agree, tag, work, keep)
         said_f1 = {}
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
-            audio_entries = audio_vad_phase(m2_vad, cuda_ms, agree, tag, work, said_f1)
-            video_entries = video_vad_phase(m2_vad, cuda_ms, agree, tag, work, said_f1)
-            scoring_entries = scoring_phase(dict(kept, m2=m2_vad), said_f1, cuda_ms, tag, work)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
-            depth_entries = depth_phase(wavs, cleans, (x2b, maskb), frames, cuda_ms,
-                                        plain_chain, agree, tag, work, kept["vad_npz"])
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as tree:
+            audio_entries = audio_vad_phase(m2_vad, cuda_ms, agree, tag, tree, said_f1)
+            video_entries = video_vad_phase(m2_vad, cuda_ms, agree, tag, tree, said_f1)
+            scoring_entries = scoring_phase(dict(kept, m2=m2_vad), said_f1, cuda_ms, tag, tree)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+                depth_entries = depth_phase(wavs, cleans, (x2b, maskb), frames, cuda_ms,
+                                            plain_chain, agree, tag, work, kept["vad_npz"])
+            k_ms, p_ms, b_ms, b_by = times[True, False]
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+                parallel_entries = parallel_phase(
+                    model, wavs, cuda_ms, tag, work, tree, kept["vad_npz"],
+                    {"batch": (x2b, z0b, maskb), "k_ms": k_ms, "p_ms": p_ms, "b_ms": b_ms,
+                     "b_by": b_by, "max_abs": max_abs[True]})
     peem_profile(enh.mats, (x2b, z0b, maskb), cfg.mcem, tag)
 
     def m1_chain_entry(name, fast, n):
@@ -3928,7 +4241,7 @@ def main() -> int:
                                 *stft_entries, *cond_entries, *engine_entries,
                                 *serving_entries, *labelled_entries, *cli_entries,
                                 *audio_entries, *video_entries, *scoring_entries,
-                                *depth_entries]}))
+                                *depth_entries, *parallel_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -268,3 +268,51 @@ def shard_of(args) -> tuple[int, int] | None:
     if not 0 <= k < n:
         raise SystemExit(f"--shard K/N needs 0 <= K < N (got {s!r})")
     return k, n
+
+
+def add_trainer_parallel(ap: argparse.ArgumentParser) -> None:
+    """The trainers' multi-GPU flags (:func:`trainer_mesh`)."""
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="shard batches over the GPUs: one process per GPU under torchrun "
+                         "(a process group), or this process's device alone")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the torchrun process group (torch.distributed, env://) "
+                         "before building the mesh, and fail unless it has more than one "
+                         "process; implies --data-parallel")
+
+
+def trainer_mesh(args):
+    """The trainers' mesh, built straight after argument parsing: None
+    without ``--data-parallel`` / ``--multihost``; under a ``torchrun``
+    launch the process group's mesh (one GPU per process); launched alone,
+    the process's own device. ``--multihost`` raises unless the group has
+    more than one process."""
+    if not (getattr(args, "data_parallel", False) or getattr(args, "multihost", False)):
+        return None
+    import torch.distributed as dist
+
+    from dvae_tpu_torch.device import resolve_device
+    from dvae_tpu_torch.parallel import Mesh, distributed_init, make_mesh
+
+    joined = distributed_init(args.platform)
+    if args.multihost and not joined:
+        raise RuntimeError(
+            "--multihost was requested but no multi-process group was joined (no torchrun "
+            "environment, or a world size of 1: launch with torchrun --nnodes=<hosts> "
+            "--nproc-per-node=<GPUs> ... --multihost). Refusing to continue: every "
+            "process would silently train an independent copy. For one host use "
+            "--data-parallel.")
+    if dist.is_initialized():
+        return make_mesh(device=args.platform)
+    return Mesh([resolve_device(args.platform)])
+
+
+def enhancer_mesh(args):
+    """``--data-parallel`` of the inference CLIs: a mesh over every visible
+    GPU (the CPU with ``--platform cpu``), else None. The sweeps stay one
+    process each (``--shard``)."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    from dvae_tpu_torch.parallel import make_mesh
+
+    return make_mesh(device=args.platform)

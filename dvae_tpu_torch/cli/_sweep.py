@@ -16,6 +16,7 @@ from dvae_tpu_torch.cli._family import (
     add_shard,
     add_std_norm_eval,
     default_out_dir,
+    enhancer_mesh,
     load_family_model,
     mcem_config_of,
     norm_stats_if,
@@ -29,7 +30,7 @@ from dvae_tpu_torch.enhance.evaluate import (
     load_oracle_labels,
 )
 from dvae_tpu_torch.enhance.labeling import constant_labels
-from dvae_tpu_torch.enhance.pipeline import _LATER, Enhancer, EnhancerConfig
+from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
 
 
 def sweep_parser(prog: str, doc: str) -> argparse.ArgumentParser:
@@ -45,8 +46,7 @@ def sweep_parser(prog: str, doc: str) -> argparse.ArgumentParser:
     ap.add_argument("--snr", default="10", help="SNR filter ('all' = every SNR)")
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard each utterance batch over all visible devices "
-                         "(not served yet)")
+                    help="shard each utterance batch over all visible devices")
     ap.add_argument("--output-dir", default=None)
     add_ablation(ap)
     add_std_norm_eval(ap)
@@ -60,8 +60,6 @@ def parse_sweep_args(ap: argparse.ArgumentParser, argv=None) -> argparse.Namespa
     args = ap.parse_args(argv)
     if not (args.checkpoint or args.model_dir):
         ap.error("need --checkpoint or --model-dir")
-    if args.data_parallel:
-        ap.error("--data-parallel: " + _LATER.format(14))
     shard_of(args)
     return args
 
@@ -79,7 +77,8 @@ def build_enhancer(args, model_class: str, y_dim: int = 1, y_mode: str = "none",
     print(f"loaded {path}")
     cfg = EnhancerConfig(mcem=mcem or mcem_config_of(args), y_mode=y_mode,
                          ablation=ablation_of(args), norm=norm, engine=args.engine)
-    return Enhancer(model, cfg, device=device), default_out_dir(args, path), norm
+    return (Enhancer(model, cfg, device=device, mesh=enhancer_mesh(args)),
+            default_out_dir(args, path), norm)
 
 
 def add_label_source(ap: argparse.ArgumentParser, choices, help_extra: str = "") -> None:

@@ -7,10 +7,10 @@ The frame set is ``--frames`` (an ``.h5`` or an ``.npz``), by default the
 trains on the ``.npz`` that ``create_train_set --format npz`` or
 ``frames_h5_to_npz`` writes; ``--no-in-memory`` streams an ``.h5`` only.
 ``--steps-per-dispatch K`` runs K optimizer steps per dispatch: on the card
-one CUDA graph over K steps, on the CPU K eager steps. Not ported: the XLA
-compile cache (``--no-jit-cache``) and the multi-device flags
-(``--data-parallel`` / ``--multihost``, ROADMAP A14), which are parse
-errors.
+one CUDA graph over K steps, on the CPU K eager steps. ``--data-parallel``
+trains one process per GPU under ``torchrun`` (``_family.trainer_mesh``);
+``--multihost`` also requires a group of more than one process. Not
+ported: the XLA compile cache (``--no-jit-cache``).
 """
 
 from __future__ import annotations
@@ -18,7 +18,12 @@ from __future__ import annotations
 import argparse
 import os
 
-from dvae_tpu_torch.cli._family import add_common, frame_h5_path
+from dvae_tpu_torch.cli._family import (
+    add_common,
+    add_trainer_parallel,
+    frame_h5_path,
+    trainer_mesh,
+)
 from dvae_tpu_torch.data.datasets import FrameDataset
 from dvae_tpu_torch.train.loop import LoopConfig
 
@@ -52,24 +57,20 @@ def training_parser(prog: str, doc: str) -> argparse.ArgumentParser:
                          "resuming with --start-epoch and a new --end-epoch)")
     ap.add_argument("--z-dim", type=int, default=16)
     ap.add_argument("--h-dim", type=int, nargs="+", default=[128, 128])
-    ap.add_argument("--data-parallel", action="store_true",
-                    help="not ported (ROADMAP A14): a parse error")
-    ap.add_argument("--multihost", action="store_true",
-                    help="not ported (ROADMAP A14): a parse error")
+    add_trainer_parallel(ap)
     return ap
 
 
 def parse_training(ap: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse, and refuse what the JAX scripts refuse and what is not ported."""
+    """Parse, refuse what the JAX scripts refuse, then build the mesh of
+    ``--data-parallel`` / ``--multihost`` as ``args.mesh``."""
     args = ap.parse_args(argv)
     if args.device_data and args.no_in_memory:
         ap.error("--device-data uploads the in-memory split once; drop --no-in-memory")
-    if args.data_parallel or args.multihost:
-        ap.error("--data-parallel / --multihost are not ported yet: multi-GPU "
-                 "training is ROADMAP A14")
     args.frames = args.frames or frame_h5_path(args)
     if args.no_in_memory and args.frames.endswith(".npz"):
         ap.error("--no-in-memory streams an .h5; an .npz frame set is read into memory")
+    args.mesh = trainer_mesh(args)
     return args
 
 

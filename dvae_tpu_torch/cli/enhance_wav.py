@@ -27,6 +27,7 @@ import numpy as np
 from dvae_tpu_torch.cli._family import (
     add_mcem_budgets,
     add_model_family,
+    enhancer_mesh,
     load_family_model,
     mcem_config_of,
     read_norm_stats,
@@ -37,7 +38,7 @@ from dvae_tpu_torch.device import resolve_device
 from dvae_tpu_torch.enhance.labeling import classify_method_of, constant_labels, self_soft_labels
 from dvae_tpu_torch.enhance.longform import chunk_spans, enhance_chunked
 from dvae_tpu_torch.enhance.mcem import fold_seed
-from dvae_tpu_torch.enhance.pipeline import _LATER, Enhancer, EnhancerConfig
+from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
 from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped
 
 
@@ -67,7 +68,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     add_mcem_budgets(ap)
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard each batch over all visible devices (not served yet)")
+                    help="shard each batch over all visible devices")
     ap.add_argument("--y-source", default="self-soft",
                     choices=["self-soft", "npy", "ones", "zeros"],
                     help="labels for conditional classes (ignored for m1): "
@@ -110,8 +111,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                  "locate the training statistics in)")
     if args.y_source == "self-soft" and args.model_class in ("m2", "m2v2"):
         ap.error(f"{args.model_class} has no classifier; use --y-source npy/ones/zeros")
-    if args.data_parallel:
-        ap.error("--data-parallel: " + _LATER.format(14))
     if args.chunk_seconds:
         if args.chunk_concurrency < 1:
             ap.error("--chunk-concurrency must be >= 1")
@@ -147,7 +146,8 @@ def main(argv=None) -> None:
     warn_peem_family(args, args.model_class, args.y_dim)
     y_mode = {"m1": "none", "m2": "enc_dec"}.get(args.model_class, "dec_only")
     enh = Enhancer(model, EnhancerConfig(mcem=mcem_config_of(args), y_mode=y_mode, norm=norm,
-                                         engine=args.engine), device=device)
+                                         engine=args.engine), device=device,
+                  mesh=enhancer_mesh(args))
     classify_method = classify_method_of(args.model_class)
 
     def load_input(p):

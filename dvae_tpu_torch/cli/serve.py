@@ -32,12 +32,12 @@ import threading
 from dvae_tpu_torch.cli._family import (
     add_mcem_budgets,
     add_model_family,
+    enhancer_mesh,
     load_family_model,
     mcem_config_of,
     norm_stats_if,
     warn_peem_family,
 )
-from dvae_tpu_torch.enhance.pipeline import _LATER
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -73,7 +73,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="admission cap: pending requests beyond this get 503 + "
                          "Retry-After")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard each device batch over all visible devices (not served yet)")
+                    help="shard each device batch over all visible devices")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--platform", choices=("cpu", "cuda"), default=None,
                     help="cpu runs the plain PyTorch path; default: the CUDA card")
@@ -88,8 +88,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--std-norm requires --norm-h5")
     if args.model_class in ("m2", "m2v2") and args.y_source == "self-soft":
         ap.error(f"{args.model_class} has no classifier; use --y-source ones/zeros")
-    if args.data_parallel:
-        ap.error("--data-parallel: " + _LATER.format(14))
     return args
 
 
@@ -153,7 +151,7 @@ def main(argv=None) -> None:
                                 max_audio_seconds=args.max_audio_seconds,
                                 max_queue=args.max_queue, chunk_seconds=args.chunk_seconds,
                                 warmup_buckets=tuple(buckets)),
-                device=device)
+                device=device, mesh=enhancer_mesh(args))
         svc.boot = boot                          # /healthz carries the ledger
         if buckets:
             # clear before the handler goes live: a probe in the gap must

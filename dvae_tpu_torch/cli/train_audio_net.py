@@ -17,8 +17,9 @@ are ``.h5`` or ``.npz`` (``create_audio_train_set --format``).
 ``.npz``; its default is the ``.h5`` the JAX builder writes, so a machine
 without ``h5py`` passes the ``.npz``. The weights are initialized from
 ``--seed`` by torch's own rule. ``--platform cpu`` runs the plain path.
-Not ported: ``--data-parallel`` / ``--multihost`` (ROADMAP A14), parse
-errors."""
+``--data-parallel`` trains one process per GPU under ``torchrun``, each
+batching its rows of every batch (``--multihost`` also requires a group
+of more than one process)."""
 
 from __future__ import annotations
 
@@ -27,7 +28,13 @@ import os
 
 import torch
 
-from dvae_tpu_torch.cli._family import add_common, processed_dir, read_norm_stats
+from dvae_tpu_torch.cli._family import (
+    add_common,
+    add_trainer_parallel,
+    processed_dir,
+    read_norm_stats,
+    trainer_mesh,
+)
 from dvae_tpu_torch.data.builders import NOISY_STATS
 from dvae_tpu_torch.data.catalog import ntcd_timit
 from dvae_tpu_torch.data.datasets import UtteranceDataset
@@ -52,10 +59,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--end-epoch", type=int, default=500)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--run-name", default=None, help="override the auto model dir name")
-    ap.add_argument("--data-parallel", action="store_true",
-                    help="not ported (ROADMAP A14): a parse error")
-    ap.add_argument("--multihost", action="store_true",
-                    help="not ported (ROADMAP A14): a parse error")
+    add_trainer_parallel(ap)
     ap.add_argument("--hidden", type=int, default=1024)
     ap.add_argument("--num-layers", type=int, default=2)
     ap.add_argument("--seq-batch-size", type=int, default=16)
@@ -72,9 +76,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         # the LSTM head emits one scalar per frame (the reference's script is
         # VAD-only too, train_audio_net.py:63-66)
         ap.error("train_audio_net is VAD-only (--labels vad_labels)")
-    if args.data_parallel or args.multihost:
-        ap.error("--data-parallel / --multihost are not ported yet: multi-GPU "
-                 "training is ROADMAP A14")
+    args.mesh = trainer_mesh(args)
     return args
 
 
@@ -89,7 +91,7 @@ def utterances(proc: str, split: str, args) -> UtteranceDataset:
 
 def main(argv=None) -> list:
     args = parse_args(argv)
-    device = resolve_device(args.platform)
+    device = resolve_device(args.platform) if args.mesh is None else args.mesh.device
     proc = processed_dir(args)
     stft_cfg = StftConfig(center=True)  # the reference loader's (data_handling.py:126-139)
     train_ds, valid_ds = utterances(proc, args.train_split, args), utterances(
@@ -112,11 +114,11 @@ def main(argv=None) -> list:
         args.run_name or (f"ntcd_audio_vad_lstm_{args.hidden}x{args.num_layers}"
                           + ("_norm" if args.std_norm else "")))
     return fit_sequence(
-        model, opt, make_lstm_vad_step(model, opt, norm=norm),
-        make_lstm_vad_eval(model, norm=norm), train_ds, valid_ds,
+        model, opt, make_lstm_vad_step(model, opt, norm=norm, mesh=args.mesh),
+        make_lstm_vad_eval(model, norm=norm, mesh=args.mesh), train_ds, valid_ds,
         lambda ds, idx: batch_utterances(ds, idx, stft_cfg, device=device),
         model_dir, prefix="VAD", seed=args.seed, start_epoch=args.start_epoch,
-        end_epoch=args.end_epoch, batch_size=args.seq_batch_size)
+        end_epoch=args.end_epoch, batch_size=args.seq_batch_size, mesh=args.mesh)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,8 @@ def main(argv=None):
     model_name = _train.mangle("ntcd_M1", args)
     print(f"training {model_name} on {args.frames} ({len(train_ds)} frames)")
     return fit_vae(model, train_ds, valid_ds, _train.model_dir(args, model_name), "M1",
-                   conditional=False, cfg=_train.loop_config(args), device=args.platform)
+                   conditional=False, cfg=_train.loop_config(args), device=args.platform,
+                   mesh=args.mesh)
 
 
 if __name__ == "__main__":

@@ -31,7 +31,8 @@ def main(argv=None):
     model_name = _train.mangle(prefix, args, extra=lab)
     print(f"training {model_name} (y_dim={y_dim})")
     return fit_vae(model, train_ds, valid_ds, _train.model_dir(args, model_name), "M2",
-                   conditional=True, cfg=_train.loop_config(args), device=args.platform)
+                   conditional=True, cfg=_train.loop_config(args), device=args.platform,
+                   mesh=args.mesh)
 
 
 if __name__ == "__main__":

@@ -65,7 +65,7 @@ def main(argv=None):
                            cfg=_train.loop_config(args),
                            legacy_aux_coupling=args.legacy_aux_coupling,
                            y_cond=args.y_cond, enc_adversary=args.enc_adversary,
-                           device=args.platform)
+                           device=args.platform, mesh=args.mesh)
 
 
 if __name__ == "__main__":

@@ -66,7 +66,8 @@ def main(argv=None):
                            init_state_dict={k: v.clone() for k, v in model.state_dict().items()},
                            legacy_aux_coupling=args.legacy_aux_coupling, use_y_hat_soft=True,
                            freeze_classifier=args.freeze_classifier,
-                           enc_adversary=args.enc_adversary, device=args.platform)
+                           enc_adversary=args.enc_adversary, device=args.platform,
+                           mesh=args.mesh)
 
 
 if __name__ == "__main__":

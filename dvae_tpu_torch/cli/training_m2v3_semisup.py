@@ -43,7 +43,8 @@ def main(argv=None):
           f"y_cond={args.y_cond})")
     return fit_semisup(model, train_ds, valid_ds, _train.model_dir(args, model_name), "M2",
                        objective=args.objective, alpha=args.alpha, y_cond=args.y_cond,
-                       cfg=_train.loop_config(args), device=args.platform)
+                       cfg=_train.loop_config(args), device=args.platform,
+                       mesh=args.mesh)
 
 
 if __name__ == "__main__":

@@ -114,6 +114,13 @@ def make_generators(seed: int, device) -> tuple[torch.Generator, ...]:
                  for i in range(3))
 
 
+def draw_nmf_init(seed: int, b: int, n: int, f: int, cfg: McemConfig, device):
+    """The NMF init (W, H, g) that a run with ``seed`` draws for a (b, n,
+    f) batch, from the first of its three streams."""
+    return init_nmf(make_generators(seed, device)[0], b, n, f, cfg.nmf_rank, cfg.eps,
+                    device=device)
+
+
 def _prep_em(mats, x2, mask, cfg: McemConfig, y, seed: int, nmf_init):
     """The preamble every engine shares: the precision rule of
     :class:`McemConfig` (``cfg.fast_decoder`` cleared unless the decoder
@@ -130,9 +137,9 @@ def _prep_em(mats, x2, mask, cfg: McemConfig, y, seed: int, nmf_init):
     dev = x2.device
     x2 = x2.to(torch.float32).contiguous()
     mask = mask.to(torch.float32)
-    g_nmf, g_em, g_wf = make_generators(seed, dev)
+    _, g_em, g_wf = make_generators(seed, dev)
     if nmf_init is None:
-        nmf_init = init_nmf(g_nmf, b, n, f, cfg.nmf_rank, cfg.eps, device=dev)
+        nmf_init = draw_nmf_init(seed, b, n, f, cfg, dev)
     else:
         nmf_init = tuple(t.to(dev, torch.float32) for t in nmf_init)
     mats = fold_conditioning(mats, None if y is None else y.reshape(b * n, -1),

@@ -15,13 +15,26 @@ out (port of ``dvae_tpu.enhance.pipeline``).
 
 CUDA work is asynchronous, so :meth:`Enhancer.dispatch` returns once the
 batch is enqueued and :meth:`Enhancer.collect` blocks on the copy back.
+
+On a :class:`~dvae_tpu_torch.parallel.Mesh` the padded batch (its
+utterance count padded to a multiple of the mesh with 1-frame silent
+utterances) is split into ``mesh.size`` contiguous shards, one dispatched
+per device, each through the same device program on its own copy of the
+weights; the launches are asynchronous, so the devices overlap. The NMF
+init is drawn at the global batch's shapes from the run's first stream
+and sliced, so shards start where the unsharded run starts; each shard
+after the first draws its chains from streams of its own
+(``fold_seed(seed, SHARD_STREAM, i)``), so live chains are equal to the
+unsharded run's in distribution, the frozen chain (``var_rw = 0``) to
+rounding, and a mesh of one device bitwise.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +42,7 @@ import torch
 from dvae_tpu_torch.device import resolve_device
 from dvae_tpu_torch.enhance.mcem import (
     McemConfig,
+    draw_nmf_init,
     fold_seed,
     run_em_fixed_z,
     run_mcem,
@@ -45,7 +59,8 @@ from dvae_tpu_torch.ops.stft import (
     stft_realimag,
 )
 
-_LATER = "not served by this port yet (a later PR, ROADMAP queue A{})"
+#: the fold_seed tag of the chain streams of a mesh's shards after the first
+SHARD_STREAM = 0x5A4D
 
 #: ``EnhancerConfig.engine`` -> the E-step engine (``enhance.mcem``)
 ENGINES = {"mcem": run_mcem, "peem": run_peem, "peem-wf": run_peem_wf, "pmcem": run_pmcem}
@@ -63,6 +78,20 @@ def _quantize_pcm16(x: torch.Tensor):
     scale = (peak / 32767.0).to(torch.float32)
     q = torch.round(x / scale[:, None]).clamp(-32768, 32767).to(torch.int16)
     return q, scale
+
+
+class _Replica(NamedTuple):
+    """The weights on one device: the model, its decoder matrices for the
+    chain kernel and the encoder's input statistics (or None)."""
+    model: torch.nn.Module
+    mats: object
+    norm: tuple | None
+
+
+def _blocks(n: int, parts: int) -> list[slice]:
+    """``parts`` contiguous equal row blocks of ``n`` rows."""
+    per = n // parts
+    return [slice(i * per, (i + 1) * per) for i in range(parts)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,19 +145,45 @@ class Enhancer:
         if cfg.aot_dir is not None:
             raise NotImplementedError(f"aot_dir={cfg.aot_dir!r}: the AOT executable cache is "
                                       "XLA-specific and is not ported")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh={mesh!r}: " + _LATER.format(14))
         # the decoder's widths, checked before any device work
         if decoder_widths(model) is None:
             raise ValueError("the E-step engines need a model with a decoder")
+        if mesh is None:
+            devices = (resolve_device(device),)
+        else:
+            if mesh.group is not None:
+                raise ValueError(
+                    f"{mesh!r}: the Enhancer shards a batch over this process's devices; "
+                    "a process group's mesh is the trainers' (the sweeps run one process "
+                    "per --shard)")
+            devices = mesh.devices
+            if device is not None and resolve_device(device).type != devices[0].type:
+                raise ValueError(f"device={device!r} but the mesh is on {devices[0]}")
+            for d in devices:
+                resolve_device(d)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = devices[0]
         self.model = model.to(self.device).eval()
-        self.mats = extract_decoder_mlp(self.model, self.model.z_dim)
-        self._norm = None if cfg.norm is None else tuple(
-            torch.as_tensor(np.asarray(a, np.float32).reshape(-1), device=self.device)
-            for a in cfg.norm)
+        self._devices = devices
+        self._replicate()
         self.last_cost = None
+
+    def _replicate(self) -> None:
+        """The weights, decoder matrices and input statistics on each device
+        of the mesh, ``self.model`` itself on the first."""
+        cfg = self.cfg
+        reps = {}
+        for d in self._devices:
+            if d in reps:
+                continue
+            model = self.model if not reps else copy.deepcopy(self.model).to(d).eval()
+            norm = None if cfg.norm is None else tuple(
+                torch.as_tensor(np.asarray(a, np.float32).reshape(-1), device=d)
+                for a in cfg.norm)
+            reps[d] = _Replica(model, extract_decoder_mlp(model, model.z_dim), norm)
+        self._reps = reps
+        self.mats, self._norm = reps[self.device].mats, reps[self.device].norm
 
     def reload(self, state_dict) -> None:
         """Swap in same-shape weights (e.g. a newer checkpoint of the same
@@ -141,13 +196,16 @@ class Enhancer:
                 raise ValueError(f"param {k}: {tuple(v.shape)}/{v.dtype} != "
                                  f"{tuple(old[k].shape)}/{old[k].dtype}")
         self.model.load_state_dict(state_dict, strict=True)
-        self.mats = extract_decoder_mlp(self.model, self.model.z_dim)
+        self._replicate()
 
     # -- device program ------------------------------------------------------
     @torch.inference_mode()
-    def _core(self, xw, x_scale, sw, s_scale, mask, y, seed: int, n_frames: int):
-        """``sw`` / ``s_scale``: the clean waveforms on the wire (the clean-z
-        ablations only, else None)."""
+    def _core(self, rep, xw, x_scale, sw, s_scale, mask, y, seed: int, n_frames: int,
+              nmf_init=None):
+        """The device program on the device of ``rep`` (a :class:`_Replica`).
+        ``sw`` / ``s_scale``: the clean waveforms on the wire (the clean-z
+        ablations only, else None); ``nmf_init`` replaces the engine's own
+        NMF init draw."""
         cfg = self.cfg
 
         def power(w, scale):
@@ -157,14 +215,14 @@ class Enhancer:
 
         re, im, x2 = power(xw, x_scale)
         enc_in = x2 if cfg.ablation == "none" else power(sw, s_scale)[2]
-        if self._norm is not None:  # the encoder input only; the engine sees raw x2
-            mean, std = self._norm
+        if rep.norm is not None:  # the encoder input only; the engine sees raw x2
+            mean, std = rep.norm
             enc_in = (enc_in - mean) / (std + cfg.norm_eps)
         if cfg.y_mode == "enc_dec":
             enc_in = torch.cat([enc_in, y], -1)
-        _, z0, _ = self.model.encode(enc_in, sample=False)
+        _, z0, _ = rep.model.encode(enc_in, sample=False)
         engine = run_em_fixed_z if cfg.ablation == "clean_z_nomcem" else ENGINES[cfg.engine]
-        res = engine(self.mats, x2, z0, mask, seed, cfg.mcem, y=y)
+        res = engine(rep.mats, x2, z0, mask, seed, cfg.mcem, y=y, nmf_init=nmf_init)
         s = istft_realimag_masked(res.wfs * re, res.wfs * im, mask, cfg.stft)
         n = None
         if not cfg.noise_from_partition:
@@ -224,35 +282,69 @@ class Enhancer:
         return xw, x_scale, sw, s_scale, mask, y, n_pad, frames
 
     def _dispatch(self, wavs, ys, seed, max_frames, clean_wavs=None):
-        """Pad + upload one batch and enqueue its device work (async). The
-        clean waveforms are read for the clean-z ablations only."""
-        if self.cfg.ablation == "none":
+        """Pad + upload one batch and enqueue its device work (async), one
+        shard per device of the mesh. The clean waveforms are read for the
+        clean-z ablations only."""
+        cfg = self.cfg
+        if cfg.ablation == "none":
             clean_wavs = None
         elif clean_wavs is None:
-            raise ValueError(f"ablation={self.cfg.ablation} needs the clean waveforms "
+            raise ValueError(f"ablation={cfg.ablation} needs the clean waveforms "
                              "(clean_wavs=...) to encode the clean latent")
+        n_real = len(wavs)
+        parts = len(self._devices)
+        if n_real % parts:
+            # pad to a multiple of the mesh with 1-frame silent utterances,
+            # dropped again in _collect
+            pad = parts - n_real % parts
+            silent = np.zeros(cfg.stft.nfft, np.float32)
+            wavs = list(wavs) + [silent] * pad
+            if clean_wavs is not None:
+                clean_wavs = list(clean_wavs) + [silent] * pad
+            if ys is not None:
+                ys = list(ys) + [np.zeros((1, np.asarray(ys[0]).shape[-1]), np.float32)] * pad
+            if max_frames is not None:
+                max_frames = list(max_frames) + [1] * pad
         xw, x_scale, sw, s_scale, mask, y, n_pad, frames = self._prepare(
             wavs, ys, max_frames, clean_wavs)
-
-        def up(t):
-            return None if t is None else t.to(self.device)
-
-        out_dev = self._core(up(xw), up(x_scale), up(sw), up(s_scale), up(mask), up(y),
-                             0 if seed is None else seed, n_pad)
-        lengths = [len(w) for w in wavs]
-        if self.cfg.noise_from_partition:
-            cover = [samples_for_frames(fi, self.cfg.stft) for fi in frames]
-            return out_dev, (lengths, [np.asarray(w, np.float32) for w in wavs], cover)
-        return out_dev, lengths
+        seed = 0 if seed is None else seed
+        nmf_init = None
+        if self.mesh is not None:
+            # the global batch's NMF init, drawn as the unsharded run draws it
+            nmf_init = draw_nmf_init(seed, len(wavs), n_pad, cfg.stft.nfft // 2 + 1, cfg.mcem,
+                                     self.device)
+        blocks = _blocks(len(wavs), parts)
+        shards = []
+        for i, (dev, rows) in enumerate(zip(self._devices, blocks)):
+            wire = [None if t is None else t[rows].to(dev)
+                    for t in (xw, x_scale, sw, s_scale, mask, y)]
+            init = None if nmf_init is None else tuple(t[rows].to(dev) for t in nmf_init)
+            shards.append(self._core(self._reps[dev], *wire,
+                                     seed if i == 0 else fold_seed(seed, SHARD_STREAM, i),
+                                     n_pad, init))
+        counts = mask.sum(1) * (cfg.stft.nfft // 2 + 1)
+        cost_w = [counts[rows].sum().clamp_min(1.0) for rows in blocks]
+        lengths = [len(w) for w in wavs[:n_real]]
+        if cfg.noise_from_partition:
+            cover = [samples_for_frames(fi, cfg.stft) for fi in frames[:n_real]]
+            return shards, cost_w, (lengths, [np.asarray(w, np.float32) for w in wavs[:n_real]],
+                                    cover)
+        return shards, cost_w, lengths
 
     def _collect(self, handle) -> list[tuple[np.ndarray, np.ndarray]]:
-        """Pull a dispatched batch back to the host and finalize lengths."""
+        """Pull a dispatched batch back to the host (the shards in order)
+        and finalize lengths."""
+        shards, cost_w, host = handle
+
+        def gather(j):
+            return np.concatenate([sh[j].cpu().numpy() for sh in shards])
+
+        s_all = gather(0).astype(np.float32) * gather(1)[:, None]
         if self.cfg.noise_from_partition:
-            (s_dev, s_sc, cost), (lengths, xs, cover) = handle
+            lengths, xs, cover = host
         else:
-            (s_dev, s_sc, n_dev, n_sc, cost), lengths = handle
-            n_all = n_dev.cpu().numpy().astype(np.float32) * n_sc.cpu().numpy()[:, None]
-        s_all = s_dev.cpu().numpy().astype(np.float32) * s_sc.cpu().numpy()[:, None]
+            lengths = host
+            n_all = gather(2).astype(np.float32) * gather(3)[:, None]
         out = []
         for i, t_i in enumerate(lengths):
             s = np.zeros(t_i, np.float32)
@@ -268,7 +360,14 @@ class Enhancer:
                 n = np.zeros(t_i, np.float32)
                 n[:t_have] = n_all[i, :t_have]
             out.append((s, n))
-        self.last_cost = cost.cpu().numpy()
+        if len(shards) == 1:
+            self.last_cost = shards[0][-1].cpu().numpy()
+        else:
+            # the masked mean over the whole batch: each shard's mean
+            # weighted by its count of valid cells
+            w = torch.stack(cost_w).double()
+            costs = torch.stack([sh[-1].cpu().double() for sh in shards])
+            self.last_cost = ((costs * w[:, None]).sum(0) / w.sum()).float().numpy()
         return out
 
     def enhance_batch(self, wavs: Sequence[np.ndarray],

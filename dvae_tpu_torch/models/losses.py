@@ -114,6 +114,13 @@ def f1_loss(y_hat_hard, y, eps: float = 1e-8, mask=None):
     tn = torch.sum(m * (1 - y_true) * (1 - y_pred))
     fp = torch.sum(m * (1 - y_true) * y_pred)
     fn = torch.sum(m * y_true * (1 - y_pred))
+    return f1_from_counts(tp, tn, fp, fn, eps)
+
+
+def f1_from_counts(tp, tn, fp, fn, eps: float = 1e-8):
+    """(accuracy, precision, recall, F1) from the four counts, as
+    :func:`f1_loss` computes them (counts summed over processes give the
+    global batch's statistics)."""
     accuracy = (tp + tn) / (tp + tn + fp + fn + eps)
     precision = tp / (tp + fp + eps)
     recall = tp / (tp + fn + eps)

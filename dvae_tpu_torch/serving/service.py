@@ -39,13 +39,14 @@ class EnhanceService(_ChunkedStreamingMixin):
     """Owns the Enhancer, the request queue and the micro-batching worker.
 
     ``model_class`` is the ``enhance_wav`` family name (m1/m2/m2v2/v3/v4/v5);
-    it decides label handling. ``device`` is the Enhancer's: CUDA unless
-    ``"cpu"`` is passed (raises without a card). Thread-safe: ``submit``
+    it decides label handling. ``device`` and ``mesh`` are the Enhancer's:
+    CUDA unless ``"cpu"`` is passed (raises without a card), each device
+    batch sharded over ``mesh`` when given. Thread-safe: ``submit``
     may be called from any number of threads.
     """
 
     def __init__(self, model, model_class: str, enh_cfg: EnhancerConfig = EnhancerConfig(),
-                 cfg: ServeConfig = ServeConfig(), device=None):
+                 cfg: ServeConfig = ServeConfig(), device=None, mesh=None):
         if cfg.y_source not in _Y_SOURCES:
             raise ValueError(f"bad y_source {cfg.y_source!r}")
         self.model_class = model_class
@@ -60,7 +61,7 @@ class EnhanceService(_ChunkedStreamingMixin):
         # the host template checkpoints load into (the Enhancer moves
         # ``model`` itself to the device)
         self._template = copy.deepcopy(model).cpu()
-        self.enhancer = Enhancer(model, enh_cfg, device=device)
+        self.enhancer = Enhancer(model, enh_cfg, device=device, mesh=mesh)
         self.max_queue = max(1, cfg.max_queue)  # the actual admission bound
         self._q: queue.Queue = queue.Queue(maxsize=self.max_queue)
         self._lock = threading.Lock()

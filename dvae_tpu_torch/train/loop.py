@@ -14,6 +14,19 @@ the reparameterization noise comes from a ``torch.Generator`` seeded from
 the same pair. A run resumed at ``start_epoch`` therefore replays the
 uninterrupted run exactly.
 
+Under a :class:`~dvae_tpu_torch.parallel.Mesh` (``mesh=``) each process
+runs its contiguous rows of every global batch, as JAX's loop shards the
+batch over the ``data`` axis: a trailing batch that does not divide the
+mesh is wrap-padded first (``_pad_shardable``: rows repeated, never
+zeros); the replicas start from rank 0's weights; each step draws the
+sampling noise of the whole global batch from the epoch's generator and
+keeps its own rows, so every process's generator stays in step with the
+one-process run's; the gradients are all-reduced (summed, then divided by
+the world size) before each optimizer steps, and the metrics likewise.
+A run at world size N therefore equals the one-process run of the same
+mesh size up to the all-reduce's rounding. Only rank 0 writes logs and
+checkpoints.
+
 ``steps_per_dispatch = K > 1`` runs K same-shape batches per dispatch
 through :class:`~dvae_tpu_torch.train.steps.MultiStep`, one CUDA graph
 replay on the card, as JAX's buffered flush does: a ragged trailing batch
@@ -34,6 +47,8 @@ import torch
 from dvae_tpu_torch.data.datasets import index_batches
 from dvae_tpu_torch.device import resolve_device
 from dvae_tpu_torch.models.blocks import init_xavier_
+from dvae_tpu_torch.parallel.distributed import allreduce_sum, grad_allreduce
+from dvae_tpu_torch.parallel.mesh import replicate
 from dvae_tpu_torch.train import checkpoint as ckpt
 from dvae_tpu_torch.train.steps import (
     MultiStep,
@@ -69,20 +84,29 @@ class LoopConfig:
 
 
 class _Logger:
-    """Reference-format batch and epoch logs."""
+    """Reference-format batch and epoch logs. Under a process group only
+    rank 0 writes and prints (``enabled``): every rank logs the same
+    numbers, and N appenders to one shared log would interleave."""
 
-    def __init__(self, model_dir, append: bool = False):
+    def __init__(self, model_dir, append: bool = False, enabled: bool = True):
         self.dir = pathlib.Path(model_dir)
+        self.enabled = enabled
+        if not enabled:
+            return
         self.dir.mkdir(parents=True, exist_ok=True)
         if not append:
             (self.dir / "output_batch.log").write_text("")
             (self.dir / "output_epoch.log").write_text("")
 
     def batch(self, msg):
+        if not self.enabled:
+            return
         with open(self.dir / "output_batch.log", "a") as f:
             print(msg, file=f)
 
     def epoch(self, msg):
+        if not self.enabled:
+            return
         print(msg)
         with open(self.dir / "output_epoch.log", "a") as f:
             print(msg, file=f)
@@ -137,13 +161,17 @@ class _HostFeed:
     def size(item) -> int:
         return item[0].shape[0]
 
-    def one(self, item):
-        x, y = item
+    def one(self, item, rows=None):
+        """The batch on the device; ``rows`` (indices into it) keeps those
+        rows only, in their order."""
+        x, y = item if rows is None else (item[0][rows], None if item[1] is None
+                                          else item[1][rows])
         return (torch.from_numpy(x).to(self.device),
                 torch.from_numpy(y).to(self.device) if self.labels else None)
 
-    def stack(self, items):
-        parts = [[it[0] for it in items]] + ([[it[1] for it in items]] if self.labels else [])
+    def stack(self, items, rows=slice(None)):
+        parts = [[it[0][rows] for it in items]] + (
+            [[it[1][rows] for it in items]] if self.labels else [])
         if self.device.type != "cuda":
             out = [torch.from_numpy(np.stack(a)) for a in parts]
         else:
@@ -198,15 +226,17 @@ class _DeviceFeed:
     def size(item) -> int:
         return item[1]
 
-    def one(self, item):
+    def one(self, item, rows=None):
         start, n = item
         idx = self._order[start:start + n]
+        if rows is not None:
+            idx = idx[torch.from_numpy(rows).to(self.device)]
         x_all, y_all = self.data
         return x_all.index_select(0, idx), None if y_all is None else y_all.index_select(0, idx)
 
-    def stack(self, items):
+    def stack(self, items, rows=slice(None)):
         return self._order.narrow(0, items[0][0], len(items) * items[0][1]).view(
-            len(items), items[0][1]), None
+            len(items), items[0][1])[:, rows], None
 
     def sent(self) -> None:
         pass
@@ -238,29 +268,80 @@ def _state_cpu(model) -> dict:
     return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
 
 
+def _pad_shardable(n: int, mesh) -> np.ndarray:
+    """This process's rows (indices into the batch) of a batch of ``n``
+    rows wrap-padded so that it divides the mesh: rows repeated from the
+    batch start, never zeros (x = 0 would put log 0 into the
+    Itakura-Saito ELBO). The repeated rows weigh that one trailing batch a
+    little more, as in the JAX loop."""
+    order = np.arange(-(-n // mesh.size) * mesh.size) % n
+    return order[_mine(len(order), mesh)]
+
+
+def _mine(n: int, mesh) -> slice:
+    """This process's contiguous rows of a global batch of ``n`` rows
+    (``n`` divides the mesh)."""
+    per = n // mesh.world
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def _sharded(fn, mesh, z_dim: int):
+    """``fn`` (a step or evaluate taking ``(x, y, generator=,
+    sample_eps=)``) on this process's rows of a global batch: it draws the
+    reparameterization noise of the whole global batch (``world`` times
+    its rows) from ``generator``, as the one-process run draws it, and
+    passes its own rows as ``sample_eps``; the metrics come back averaged
+    over the group."""
+    world, rank = mesh.world, mesh.rank
+
+    def call(x, y=None, generator=None, sample_eps=None):
+        b = x.shape[0]
+        if sample_eps is None:
+            eps = torch.randn((b * world, z_dim), generator=generator, device=x.device)
+            sample_eps = eps[rank * b:(rank + 1) * b]
+        m = fn(x, y, sample_eps=sample_eps)
+        if mesh.group is None:
+            return m
+        names = list(m)
+        v = allreduce_sum(torch.stack([m[k] for k in names]), mesh) / world
+        return dict(zip(names, v.unbind()))
+
+    return call
+
+
 def _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefix: str,
-                cfg: LoopConfig, device, labels: bool, vloss_key: str):
+                cfg: LoopConfig, device, labels: bool, vloss_key: str, mesh=None):
     """The epoch loop of every fitter: the resume of ``cfg.start_epoch``,
     batches (with their labels when ``labels``) from the host or from
     device-resident splits, ``cfg.steps_per_dispatch`` of them per dispatch,
     logging, per-epoch checkpoints (``opt``, one optimizer or a dict of
     them, goes into the ``.opt.pt``) and best-weights tracking by the
     validation metric ``vloss_key``. ``step`` / ``evaluate`` take ``(x, y,
-    generator=)``. Returns (best state_dict on the CPU, history)."""
+    generator=)``. Under ``mesh`` each process runs its rows of each batch
+    (see the module docstring): a batch that does not divide the mesh
+    runs alone, wrap-padded; a validation batch that does not divide it
+    runs whole on every process, so that the validation mean stays exact.
+    Returns (best state_dict on the CPU, history)."""
     resume = _resume_checkpoint(model_dir, prefix, cfg.start_epoch)
     if resume is not None:
         ckpt.load_checkpoint(resume, model, opt)
         print(f"resumed from {resume}")
     feed = _DeviceFeed if cfg.device_data else _HostFeed
     train_feed, valid_feed = feed(train_ds, device, labels), feed(valid_ds, device, labels)
+    whole_eval = evaluate
+    if mesh is not None:
+        step, evaluate = (_sharded(f, mesh, model.z_dim) for f in (step, evaluate))
     multi = None
     if cfg.steps_per_dispatch > 1:
-        multi = MultiStep(step, _optimizers(opt), train_feed.data)
-    log = _Logger(model_dir, append=resume is not None)
+        multi = MultiStep(step, _optimizers(opt), train_feed.data,
+                          "global" if mesh is None or mesh.group is None else "thread_local")
+    writer = mesh is None or mesh.rank == 0
+    log = _Logger(model_dir, append=resume is not None, enabled=writer)
     history = []
     best = (np.inf, None)
     n_train = max(1, -(-len(train_ds) // cfg.batch_size))
     n_valid = max(1, -(-len(valid_ds) // cfg.batch_size))
+    size = 1 if mesh is None else mesh.size
     gen = None
 
     for epoch in range(cfg.start_epoch, cfg.end_epoch):
@@ -277,11 +358,13 @@ def _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefi
             if not buf:
                 return
             if len(buf) > 1:
-                vals = multi(*train_feed.stack(buf), generator=gen)
+                rows = slice(None) if mesh is None else _mine(train_feed.size(buf[0]), mesh)
+                vals = multi(*train_feed.stack(buf, rows), generator=gen)
                 train_feed.sent()
                 names = multi.names
             else:
-                m = step(*train_feed.one(buf[0]), generator=gen)
+                rows = None if mesh is None else _pad_shardable(train_feed.size(buf[0]), mesh)
+                m = step(*train_feed.one(buf[0], rows), generator=gen)
                 names = list(m)
                 vals = torch.stack([m[k] for k in names])[None]
             part = vals.sum(0, dtype=torch.float64)
@@ -297,7 +380,7 @@ def _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefi
         for item in train_feed.batches(cfg.batch_size, rng, cfg.drop_last):
             n = train_feed.size(item)
             first = n if first is None else first
-            if n != first:  # a ragged trailing batch runs alone
+            if n != first or n % size:  # a ragged or unshardable batch runs alone
                 flush()
                 buf.append(item)
                 flush()
@@ -312,7 +395,12 @@ def _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefi
 
         totals = {}
         for item in valid_feed.batches(cfg.batch_size):
-            for k, v in evaluate(*valid_feed.one(item), generator=gen).items():
+            n = valid_feed.size(item)
+            if mesh is None or n % size:
+                m = whole_eval(*valid_feed.one(item), generator=gen)
+            else:
+                m = evaluate(*valid_feed.one(item, _pad_shardable(n, mesh)), generator=gen)
+            for k, v in m.items():
                 totals[k] = totals.get(k, 0.0) + v.double()
         valid_avg = {k: float(v) / n_valid for k, v in totals.items()}
 
@@ -323,8 +411,9 @@ def _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefi
 
         vloss = valid_avg[vloss_key]
         name = ckpt.checkpoint_name(prefix, epoch, vloss)
-        ckpt.save_checkpoint(model_dir, name, model, opt,
-                             metadata={"epoch": epoch, **valid_avg})
+        if writer:
+            ckpt.save_checkpoint(model_dir, name, model, opt,
+                                 metadata={"epoch": epoch, **valid_avg})
         history.append({"epoch": epoch, "train": train_avg, "valid": valid_avg})
         if vloss < best[0]:
             best = (vloss, _state_cpu(model))
@@ -333,21 +422,26 @@ def _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefi
 
 
 def _prepare(model, cfg: LoopConfig, mesh, init_state_dict, device):
-    """Refuse what is not ported, then start ``model``'s weights on the
-    resolved device: Xavier-normal from a generator seeded by ``cfg.seed``,
-    or ``init_state_dict``. Returns (device, whether the steps run K per
-    dispatch)."""
+    """Start ``model``'s weights on the device: Xavier-normal from a
+    generator seeded by ``cfg.seed``, or ``init_state_dict``; under
+    ``mesh`` on this process's device, then broadcast from rank 0. Returns
+    (device, whether the steps run K per dispatch)."""
     if cfg.steps_per_dispatch < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1, got {cfg.steps_per_dispatch}")
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A14)")
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = mesh.device
+        if device is not None and resolve_device(device).type != dev.type:
+            raise ValueError(f"device={device!r} but the mesh is on {dev}")
     model.to("cpu")
     if init_state_dict is not None:
         model.load_state_dict(init_state_dict, strict=True)
     else:
         init_xavier_(model, torch.Generator().manual_seed(cfg.seed))
     model.to(dev)
+    if mesh is not None:
+        replicate(model, mesh)
     return dev, cfg.steps_per_dispatch > 1
 
 
@@ -378,10 +472,11 @@ def fit_vae(model, train_ds, valid_ds, model_dir, prefix: str, conditional: bool
     dev, multi = _prepare(model, cfg, mesh, init_state_dict, device)
     norm = train_ds.mean_std if cfg.std_norm else None
     opt = adam(model.parameters(), cfg.learning_rate, _capturable(dev, multi))
-    step = make_train_step(model, opt, conditional, cfg.eps, norm, keep_grads=multi)
+    step = make_train_step(model, opt, conditional, cfg.eps, norm, keep_grads=multi,
+                           grad_hook=grad_allreduce(mesh))
     evaluate = make_eval_step(model, conditional, cfg.eps, norm)
     return _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefix,
-                       cfg, dev, conditional, "elbo")
+                       cfg, dev, conditional, "elbo", mesh)
 
 
 def fit_semisup(model, train_ds, valid_ds, model_dir, prefix: str, objective: str,
@@ -399,10 +494,11 @@ def fit_semisup(model, train_ds, valid_ds, model_dir, prefix: str, objective: st
     _need_labels(train_ds, "fit_semisup")
     dev, multi = _prepare(model, cfg, mesh, init_state_dict, device)
     opt = adam(model.parameters(), cfg.learning_rate, _capturable(dev, multi))
-    step = make_semisup_step(model, opt, objective, alpha, y_cond, cfg.eps, keep_grads=multi)
+    step = make_semisup_step(model, opt, objective, alpha, y_cond, cfg.eps, keep_grads=multi,
+                             grad_hook=grad_allreduce(mesh))
     evaluate = make_semisup_eval_step(model, objective, alpha, y_cond, cfg.eps)
     return _run_epochs(model, opt, step, evaluate, train_ds, valid_ds, model_dir, prefix,
-                       cfg, dev, True, "loss")
+                       cfg, dev, True, "loss", mesh)
 
 
 def fit_adversarial(model, train_ds, valid_ds, model_dir, prefix: str, alpha: float,
@@ -429,7 +525,7 @@ def fit_adversarial(model, train_ds, valid_ds, model_dir, prefix: str, alpha: fl
         model, opt_enc, opt_aux, alpha, beta, gamma, cfg.eps,
         legacy_aux_coupling=legacy_aux_coupling,
         freeze_substring="classifier" if freeze_classifier else None, keep_grads=multi,
-        **kw)
+        grad_hook=grad_allreduce(mesh), **kw)
     evaluate = make_adversarial_eval_step(model, alpha, beta, gamma, cfg.eps, **kw)
     return _run_epochs(model, {"enc": opt_enc, "aux": opt_aux}, step, evaluate, train_ds,
-                       valid_ds, model_dir, prefix, cfg, dev, True, "enc")
+                       valid_ds, model_dir, prefix, cfg, dev, True, "enc", mesh)

@@ -8,8 +8,13 @@ device, through :mod:`dvae_tpu_torch.ops.stft_power` (one launch per
 batch). ``nn.LSTM`` runs on cuDNN on the card, in float32: the package
 switches cuDNN's TF32 off at import.
 
-Not ported yet: the video and audio-visual batchers and their models
-(ROADMAP A12), multi-GPU training (A14).
+Under a :class:`~dvae_tpu_torch.parallel.Mesh` with a process group each
+process batches its contiguous rows of every global batch (one STFT power
+launch on its own rows), the batch padded to a multiple of the mesh with
+fully masked zero rows, as JAX pads it. The masked BCE is the global
+batch's: each process divides its masked sum by the count of valid frames
+all-reduced over the group, and the gradients and the F1 counts are
+summed over it. Only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -20,9 +25,11 @@ import numpy as np
 import torch
 
 from dvae_tpu_torch.device import resolve_device
-from dvae_tpu_torch.models.losses import f1_loss
+from dvae_tpu_torch.models.losses import f1_from_counts
+from dvae_tpu_torch.parallel.distributed import allreduce_sum, grad_allreduce
 from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped, samples_for_frames
 from dvae_tpu_torch.ops.stft_power import log_power_spectrogram
+from dvae_tpu_torch.parallel.mesh import replicate
 from dvae_tpu_torch.train import checkpoint as ckpt
 from dvae_tpu_torch.train.loop import _resume_checkpoint
 from dvae_tpu_torch.train.steps import _normalizer
@@ -41,51 +48,77 @@ def _seq_normalizer(norm, eps, device=None) -> Callable:
     return _normalizer(norm, eps, device)
 
 
-def _masked_bce(p, y, mask, eps):
+def _masked_bce(p, y, mask, eps, mesh=None):
+    """The masked mean BCE over the valid frames; under a group this
+    process's masked sum over the valid frames of the whole global
+    batch, so that the group's sum is the global mean."""
     bce = -(y * torch.log(p + eps) + (1 - y) * torch.log(1 - p + eps))
-    return torch.sum(bce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = allreduce_sum(torch.sum(mask).detach(), mesh)
+    return torch.sum(bce * mask) / torch.clamp(count, min=1.0)
 
 
-def _frame_stats(p, y, mask) -> dict:
-    # the mask keeps padded frames out of the counts, so they do not score
-    # as true negatives
+def _frame_metrics(loss, p, y, mask, mesh=None) -> dict:
+    """bce and the F1 statistics of the valid frames; under a group the
+    bce shares and the four counts are summed over it first. The mask
+    keeps padded frames out of the counts, so they do not score as true
+    negatives."""
     hard = (p > 0.5).to(torch.float32) * mask
-    acc, prec, rec, f1 = f1_loss(hard, y * mask, mask=mask)
-    return {"accuracy": acc, "precision": prec, "recall": rec, "f1": f1}
+    y_true, m = (y * mask).reshape(-1), mask.reshape(-1)
+    y_pred = hard.reshape(-1)
+    sums = torch.stack([loss.detach(), torch.sum(m * y_true * y_pred),
+                        torch.sum(m * (1 - y_true) * (1 - y_pred)),
+                        torch.sum(m * (1 - y_true) * y_pred),
+                        torch.sum(m * y_true * (1 - y_pred))])
+    bce, tp, tn, fp, fn = allreduce_sum(sums, mesh).unbind()
+    acc, prec, rec, f1 = f1_from_counts(tp, tn, fp, fn)
+    return {"bce": bce, "accuracy": acc, "precision": prec, "recall": rec, "f1": f1}
+
+
+def _group_of(mesh):
+    return None if mesh is None or mesh.group is None else mesh
 
 
 def make_lstm_vad_step(model, opt: torch.optim.Optimizer, eps: float = 1e-8,
-                       norm=None) -> Callable:
+                       norm=None, mesh=None) -> Callable:
     """``step(x (B, T, F), y (B, T), mask (B, T)) -> metrics``: one Adam
     update on the masked BCE. ``norm``: the optional (mean, std) train
     statistics of the input; the model sees (x - mean) / (std + eps).
     ``x`` may be a tuple (the AV model), and ``norm`` then has the tuple
-    form of :func:`_seq_normalizer`."""
+    form of :func:`_seq_normalizer`. Under ``mesh`` (with a process group)
+    the batch is this process's rows, and the loss, the gradients (summed)
+    and the metrics are the global batch's."""
     normalize = _seq_normalizer(norm, eps, next(model.parameters()).device)
+    group = _group_of(mesh)
+    hook = grad_allreduce(group, mean=False)
 
     def step(x, y, mask):
         model.train()
         opt.zero_grad(set_to_none=True)
         p = model(normalize(x))
-        loss = _masked_bce(p, y, mask, eps)
+        loss = _masked_bce(p, y, mask, eps, group)
         loss.backward()
+        if hook is not None:
+            hook(opt)
         opt.step()
-        return {"bce": loss.detach(), **_frame_stats(p.detach(), y, mask)}
+        return _frame_metrics(loss, p.detach(), y, mask, group)
 
+    step.mesh = mesh
     return step
 
 
-def make_lstm_vad_eval(model, eps: float = 1e-8, norm=None) -> Callable:
-    """``evaluate(x, y, mask) -> metrics``, without an update; ``x`` and
-    ``norm`` as in :func:`make_lstm_vad_step`."""
+def make_lstm_vad_eval(model, eps: float = 1e-8, norm=None, mesh=None) -> Callable:
+    """``evaluate(x, y, mask) -> metrics``, without an update; ``x``,
+    ``norm`` and ``mesh`` as in :func:`make_lstm_vad_step`."""
     normalize = _seq_normalizer(norm, eps, next(model.parameters()).device)
+    group = _group_of(mesh)
 
     @torch.no_grad()
     def evaluate(x, y, mask):
         model.eval()
         p = model(normalize(x))
-        return {"bce": _masked_bce(p, y, mask, eps), **_frame_stats(p, y, mask)}
+        return _frame_metrics(_masked_bce(p, y, mask, eps, group), p, y, mask, group)
 
+    evaluate.mesh = mesh
     return evaluate
 
 
@@ -228,6 +261,35 @@ def batch_av_utterances(ds, indices, stft_cfg: StftConfig, pad_to_multiple: int 
             torch.from_numpy(mb).to(dev))
 
 
+def _zero_rows(batch, rows: int):
+    """``batch`` (x or a tuple of inputs, y, mask) with its last ``rows``
+    rows zeroed: fully masked zero rows, the padding of a global batch."""
+    if rows == 0:
+        return batch
+
+    def zero(t):
+        if isinstance(t, tuple):
+            return tuple(zero(a) for a in t)
+        t = t.clone()
+        t[t.shape[0] - rows:] = 0
+        return t
+
+    return tuple(zero(t) for t in batch)
+
+
+def _my_rows(indices, mesh):
+    """This process's rows of a global batch of ``indices`` padded to a
+    multiple of the mesh: (its indices, how many of its last rows are
+    padding). A padding row batches the global batch's first utterance
+    and is then zeroed and fully masked (:func:`_zero_rows`)."""
+    indices = list(indices)
+    if mesh is None:
+        return indices, 0
+    per = -(-len(indices) // mesh.size) * len(mesh.devices)
+    mine = indices[mesh.rank * per:(mesh.rank + 1) * per]
+    return mine + [indices[0]] * (per - len(mine)), per - len(mine)
+
+
 def fit_sequence(model, opt, step, evaluate, train_ds, valid_ds, batcher, model_dir, *,
                  prefix: str, seed: int = 0, start_epoch: int = 1, end_epoch: int = 500,
                  batch_size: int = 16, mesh=None, log=print) -> list:
@@ -238,10 +300,20 @@ def fit_sequence(model, opt, step, evaluate, train_ds, valid_ds, batcher, model_
     named by the validation BCE. ``batcher(ds, indices) -> (x, y, mask)``,
     ``x`` a tuple for the AV model;
     ``step`` / ``evaluate`` come from :func:`make_lstm_vad_step` /
-    :func:`make_lstm_vad_eval` over ``model`` and ``opt``. Returns the
-    per-epoch history."""
+    :func:`make_lstm_vad_eval` over ``model`` and ``opt``, built with the
+    same ``mesh``. Under a mesh with a process group each process batches
+    its rows of every global batch, padded with fully masked zero rows;
+    the replicas start from rank 0's weights; only rank 0 writes
+    checkpoints and logs. Returns the per-epoch history."""
     if mesh is not None:
-        raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A14)")
+        mesh.device  # one device per process: raises otherwise
+        if getattr(step, "mesh", None) is not mesh or getattr(evaluate, "mesh", None) is not mesh:
+            raise ValueError("fit_sequence(mesh=) needs step and evaluate built with the "
+                             "same mesh (make_lstm_vad_step / make_lstm_vad_eval(mesh=))")
+        replicate(model, mesh)
+    writer = mesh is None or mesh.rank == 0
+    if not writer:
+        log = _silent
     if start_epoch > 1:
         resume = _resume_checkpoint(model_dir, prefix, start_epoch)
         ckpt.load_checkpoint(resume, model, opt)
@@ -250,12 +322,16 @@ def fit_sequence(model, opt, step, evaluate, train_ds, valid_ds, batcher, model_
     def mean_of(totals, n):
         return {k: float(v) / max(n, 1) for k, v in totals.items()}
 
+    def run(fn, ds, indices):
+        mine, pad = _my_rows(indices, mesh)
+        return fn(*_zero_rows(batcher(ds, mine), pad))
+
     history = []
     for epoch in range(start_epoch, end_epoch):
         order = np.random.default_rng((seed, epoch)).permutation(len(train_ds))
         totals, n_batches = {}, 0
         for s in range(0, len(order), batch_size):
-            m = step(*batcher(train_ds, order[s:s + batch_size]))
+            m = run(step, train_ds, order[s:s + batch_size])
             for k, v in m.items():
                 totals[k] = totals.get(k, 0.0) + v.double()
             n_batches += 1
@@ -264,15 +340,20 @@ def fit_sequence(model, opt, step, evaluate, train_ds, valid_ds, batcher, model_
 
         vt, vn = {}, 0
         for s0 in range(0, len(valid_ds), batch_size):
-            m = evaluate(*batcher(valid_ds, range(s0, min(s0 + batch_size, len(valid_ds)))))
+            m = run(evaluate, valid_ds, range(s0, min(s0 + batch_size, len(valid_ds))))
             for k, v in m.items():
                 vt[k] = vt.get(k, 0.0) + v.double()
             vn += 1
         vavg = mean_of(vt, vn)
         log("  valid: " + "  ".join(f"{k}={v:.4f}" for k, v in vavg.items()))
         name = ckpt.checkpoint_name(prefix, epoch, vavg.get("bce", avg["bce"]))
-        ckpt.save_checkpoint(model_dir, name, model, opt,
-                             metadata={"epoch": epoch, **avg,
-                                       **{f"valid_{k}": v for k, v in vavg.items()}})
+        if writer:
+            ckpt.save_checkpoint(model_dir, name, model, opt,
+                                 metadata={"epoch": epoch, **avg,
+                                           **{f"valid_{k}": v for k, v in vavg.items()}})
         history.append({"epoch": epoch, "train": avg, "valid": vavg})
     return history
+
+
+def _silent(msg) -> None:
+    pass

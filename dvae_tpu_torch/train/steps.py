@@ -71,6 +71,11 @@ def _fill_missing_grads(opt) -> None:
                 p.grad = torch.zeros_like(p)
 
 
+def _run_hook(grad_hook, opt) -> None:
+    if grad_hook is not None:
+        grad_hook(opt)
+
+
 def _detached(metrics: dict) -> dict:
     return {k: v.detach() for k, v in metrics.items()}
 
@@ -99,10 +104,13 @@ def _elbo_fn(model, conditional: bool, eps: float, norm) -> Callable:
 
 
 def make_train_step(model, opt: torch.optim.Optimizer, conditional: bool = False,
-                    eps: float = 1e-8, norm=None, keep_grads: bool = False) -> Callable:
+                    eps: float = 1e-8, norm=None, keep_grads: bool = False,
+                    grad_hook=None) -> Callable:
     """``step(x, y=None, generator=None, sample_eps=None) -> metrics``: one
     Adam update of ``model`` on the batch ``x`` (B, F), conditioned on the
-    labels ``y`` (B, Yd) when ``conditional``."""
+    labels ``y`` (B, Yd) when ``conditional``. ``grad_hook(opt)``, when
+    given, runs between the backward and the update (the gradient
+    all-reduce of a process group)."""
     elbo = _elbo_fn(model, conditional, eps, norm)
 
     def step(x, y=None, generator=None, sample_eps=None):
@@ -111,6 +119,7 @@ def make_train_step(model, opt: torch.optim.Optimizer, conditional: bool = False
         total, recon, kl = elbo(x, y, generator, sample_eps)
         total.backward()
         _fill_missing_grads(opt)
+        _run_hook(grad_hook, opt)
         opt.step()
         return _detached({"elbo": total, "recon": recon, "kl": kl})
 
@@ -174,7 +183,7 @@ def _semisup_loss_fn(model, objective: str, alpha: float, y_cond: str,
 
 def make_semisup_step(model, opt: torch.optim.Optimizer, objective: str, alpha: float,
                       y_cond: str = "soft", eps: float = 1e-8,
-                      keep_grads: bool = False) -> Callable:
+                      keep_grads: bool = False, grad_hook=None) -> Callable:
     """``step(x, y, generator=None, sample_eps=None) -> metrics``: one Adam
     update of a ``CVAE_v3`` on the semi-supervised objective (``uloss`` or
     ``lloss``) minus ``alpha * BCE(y_hat_soft, y)``; a positive alpha pushes
@@ -182,7 +191,8 @@ def make_semisup_step(model, opt: torch.optim.Optimizer, objective: str, alpha: 
     conditions the decoder: the soft prediction, its hard version under
     ``detach()`` (``yhathard``; ``hardlabel`` also marginalizes U over it),
     or the true label. The JAX package's docstring gives the evidence the
-    objective was reconstructed from."""
+    objective was reconstructed from. ``grad_hook`` as in
+    :func:`make_train_step`."""
     loss_fn = _semisup_loss_fn(model, objective, alpha, y_cond, eps)
 
     def step(x, y, generator=None, sample_eps=None):
@@ -191,6 +201,7 @@ def make_semisup_step(model, opt: torch.optim.Optimizer, objective: str, alpha: 
         loss, metrics = loss_fn(x, y, generator, sample_eps)
         loss.backward()
         _fill_missing_grads(opt)
+        _run_hook(grad_hook, opt)
         opt.step()
         return _detached(metrics)
 
@@ -305,7 +316,7 @@ def make_adversarial_step(model, opt_enc: torch.optim.Optimizer,
                           legacy_aux_coupling: bool = False, use_y_hat_soft: bool = False,
                           freeze_substring: str | None = None, y_cond: str | None = None,
                           norm=None, enc_adversary: str = "bce",
-                          keep_grads: bool = False) -> Callable:
+                          keep_grads: bool = False, grad_hook=None) -> Callable:
     """``step(x, y, generator=None, sample_eps=None) -> metrics``: one move
     of each player, on a ``DisentangledVAE`` or a ``CVAE_v4`` with the
     optimizers of :func:`init_adversarial_state`.
@@ -324,7 +335,9 @@ def make_adversarial_step(model, opt_enc: torch.optim.Optimizer,
     they are cleared before the auxiliary's own backward. The reference
     never clears them, so its auxiliary follows ``gamma * dBCE - beta * d
     adversary``: ``legacy_aux_coupling=True`` trains on that loss, on the
-    detached z. Metrics: ``elbo recon kl enc classif aux_enc aux``."""
+    detached z. ``grad_hook(opt)`` runs before each player's update, on
+    that player's optimizer (see :func:`make_train_step`). Metrics: ``elbo
+    recon kl enc classif aux_enc aux``."""
     adv_fn = _enc_adversary_fn(enc_adversary, eps)
     compute = _make_adversarial_losses(
         model, alpha, beta, eps, _cond_mode(y_cond, use_y_hat_soft),
@@ -340,6 +353,7 @@ def make_adversarial_step(model, opt_enc: torch.optim.Optimizer,
         enc_loss, z, metrics, _ = compute(x, y, generator, sample_eps)
         enc_loss.backward()
         _fill_missing_grads(opt_enc)
+        _run_hook(grad_hook, opt_enc)
         for p in frozen:
             p.grad.zero_()
         opt_enc.step()
@@ -358,6 +372,7 @@ def make_adversarial_step(model, opt_enc: torch.optim.Optimizer,
         else:
             aux_loss = torch.zeros((), device=x.device)
         _fill_missing_grads(opt_aux)
+        _run_hook(grad_hook, opt_aux)
         opt_aux.step()
         metrics["aux"] = aux_loss
         return _detached(metrics)
@@ -420,12 +435,21 @@ class MultiStep:
     The steps must be built with ``keep_grads=True`` and their
     ``optimizers`` with ``capturable=True``. There is no eager fallback on
     CUDA: what the graph cannot take raises before any step runs.
+
+    A step that all-reduces over an NCCL group is captured with the
+    collective inside the graph: ``capture_error_mode="thread_local"``,
+    since NCCL's watchdog thread queries events while the capture runs,
+    which the default ``"global"`` mode turns into a capture error. The
+    eager warm-up runs the first collective, which sets up the
+    communicator before the capture.
     """
 
-    def __init__(self, step: Callable, optimizers, data=None):
+    def __init__(self, step: Callable, optimizers, data=None,
+                 capture_error_mode: str = "global"):
         self.step = step
         self.optimizers = list(optimizers)
         self.data = data
+        self.capture_error_mode = capture_error_mode
         self.names = None
         self._graphs = {}
         self._stream = None
@@ -492,7 +516,8 @@ class MultiStep:
         out.record_stream(cur)  # read on the caller's stream
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, stream=self._stream):
+        with torch.cuda.graph(graph, stream=self._stream,
+                              capture_error_mode=self.capture_error_mode):
             s_out = self._eager(s_xs, s_ys, generator)
         self._graphs[key] = (graph, s_xs, s_ys, s_out)
         return out

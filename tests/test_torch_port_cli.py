@@ -50,6 +50,18 @@ def run(tree, family, *extra):
                       "--platform", "cpu", *BUDGET, *extra])
 
 
+def test_enhance_wav_data_parallel_is_the_unsharded_run(tree):
+    """``--data-parallel`` shards each batch over ``make_mesh()`` (one CPU
+    shard here): the same wavs, bit for bit."""
+    run(tree, "m1")
+    plain = {p.relative_to(tree / "out"): p.read_bytes() for p in (tree / "out").rglob("*.wav")}
+    for p in (tree / "out").rglob("*.wav"):
+        p.unlink()
+    run(tree, "m1", "--data-parallel")
+    assert plain and plain == {p.relative_to(tree / "out"): p.read_bytes()
+                               for p in (tree / "out").rglob("*.wav")}
+
+
 @pytest.mark.parametrize("family,source", [("m1", None), ("m2", "npy"), ("v5", "self-soft")])
 def test_enhance_wav_writes_the_wiener_split(tree, capsys, family, source):
     run(tree, family, *(["--y-source", source] if source else []))
@@ -85,7 +97,10 @@ def test_enhance_wav_writes_the_wiener_split(tree, capsys, family, source):
     (["--chunk-seconds", "2", "--chunk-overlap", "1.5"], "at most half the chunk"),
     (["--chunk-seconds", "2", "--chunk-concurrency", "0"], "--chunk-concurrency must be >= 1"),
     (["--engine", "gibbs"], "invalid choice: 'gibbs'"),
-    (["--data-parallel"], "A14"),
+    # the parser takes --data-parallel (enhancing under it:
+    # test_enhance_wav_data_parallel_is_the_unsharded_run)
+    (["--data-parallel", "--chunk-seconds", "2", "--chunk-overlap", "1.5"],
+     "at most half the chunk"),
     (["--std-norm"], "--std-norm requires --norm-h5"),
     ([], "need --checkpoint or --model-dir"),
 ])

@@ -67,6 +67,18 @@ def outputs(out):
     return sorted(str(p.relative_to(out)) for p in out.rglob("*.wav"))
 
 
+def test_m1_sweep_data_parallel_is_the_unsharded_sweep(tree, tmp_path):
+    """``--data-parallel`` builds ``make_mesh()`` over the visible devices
+    (one CPU shard here): the same enhanced files, bit for bit."""
+    root, _ = tree
+    a, b = tmp_path / "plain", tmp_path / "dp"
+    assert m1_cli.main(argv(root, "m1.pt", a)) == N_NOISY
+    assert m1_cli.main(argv(root, "m1.pt", b, "--data-parallel")) == N_NOISY
+    assert outputs(a) == outputs(b)
+    for name in outputs(a):
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+
+
 def test_m1_sweep_layout_resume_ablation_and_shards(tree, tmp_path, capsys):
     root, _ = tree
     out = tmp_path / "m1"
@@ -184,7 +196,9 @@ def test_m2_info_oracle_labels_suffix(tree, tmp_path):
 
 
 @pytest.mark.parametrize("cli,extra,message", [
-    (m1_cli, ["--data-parallel"], "A14"),
+    # the parser takes --data-parallel (the sweep under it:
+    # test_m1_sweep_data_parallel_is_the_unsharded_sweep)
+    (m1_cli, ["--data-parallel", "--platform", "tpu"], "invalid choice: 'tpu'"),
     (m1_cli, ["--engine", "gibbs"], "invalid choice: 'gibbs'"),
     (m1_cli, ["--ablation", "clean_z"], "invalid choice: 'clean_z'"),
     (m2_cli, ["--y-source", "classifier"], "requires --classifier-dir"),

@@ -24,6 +24,7 @@ from dvae_tpu.train import checkpoint as jckpt
 from dvae_tpu_torch.data.datasets import FrameDataset
 from dvae_tpu_torch.models import CVAE, CVAE_v3, DisentangledVAE
 from dvae_tpu_torch.models.convert import state_dict_from_jax
+from dvae_tpu_torch.parallel import Mesh
 from dvae_tpu_torch.train import checkpoint as tckpt
 from dvae_tpu_torch.train import loop as tloop
 from dvae_tpu_torch.train.loop import LoopConfig, fit_adversarial, fit_semisup, fit_vae
@@ -162,9 +163,12 @@ def test_labelled_fitters_refuse(tmp_path):
                                           device="cpu")):
         with pytest.raises(ValueError, match="needs a dataset with labels"):
             fit(unlabelled)
+    # a mesh is served (tests/test_torch_port_parallel.py), but one process
+    # trains on one device: a mesh over two raises
     for cfg, kw, err, item in (
             (LoopConfig(end_epoch=2, steps_per_dispatch=0), {}, ValueError, "steps_per_dispatch"),
-            (LoopConfig(end_epoch=2), {"mesh": object()}, NotImplementedError, "A14")):
+            (LoopConfig(end_epoch=2), {"mesh": Mesh(["cpu", "meta"])}, ValueError,
+             "one process per GPU")):
         with pytest.raises(err, match=item):
             fit_adversarial(DisentangledVAE(F, 1, Z, H), train, valid, tmp_path, "a",
                             0.0, 1.0, 1.0, cfg=cfg, device="cpu", **kw)

@@ -25,6 +25,7 @@ from dvae_tpu_torch.enhance.mcem import McemConfig
 from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
 from dvae_tpu_torch.models import VAE
 from dvae_tpu_torch.models.convert import state_dict_from_jax
+from dvae_tpu_torch.parallel import make_mesh
 from _torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 BUDGET = dict(niter=3, nsamples_e_step=2, burnin_e_step=2, nsamples_wf=2, burnin_wf=2,
@@ -127,8 +128,12 @@ def test_default_device_without_cuda_raises(models):
 def test_unserved_config_values_raise(models, field, value):
     with pytest.raises(NotImplementedError, match="XLA-specific and is not ported"):
         Enhancer(models[2], EnhancerConfig(**{field: value}), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        Enhancer(models[2], device="cpu", mesh=object())
+    # a mesh is served: two CPU shards (tests/test_torch_port_parallel.py)
+    enh = Enhancer(models[2], EnhancerConfig(mcem=McemConfig(**BUDGET)), device="cpu",
+                   mesh=make_mesh(2, device="cpu"))
+    out = enh.enhance_batch(wavs()[:3], seed=0)
+    assert [len(s) for s, _ in out] == list(LENGTHS[:3])
+    assert all(np.isfinite(s).all() and np.isfinite(n).all() for s, n in out)
 
 
 @pytest.mark.parametrize("field,value", [("engine", "gibbs"), ("ablation", "clean-z")])

@@ -80,7 +80,8 @@ def test_conditioned_enhancer_matches_jax_frozen_chain(shared_nmf_init, case, wi
     assert len(tout) == len(ws)
     # the PCM16 grid of each utterance, set by its padded row's peak (which
     # may lie past the utterance's end): the coarser of the two sides'
-    grid = np.maximum(np.asarray(jh[0][0][1]), th[0][0][1].numpy())
+    # (the port's handle holds one output tuple per shard of the mesh)
+    grid = np.maximum(np.asarray(jh[0][0][1]), th[0][0][0][1].numpy())
     for (js, jn), (ts, tn), x, q in zip(jout, tout, ws, grid):
         assert ts.shape == tn.shape == x.shape
         assert np.isfinite(ts).all() and np.isfinite(tn).all()

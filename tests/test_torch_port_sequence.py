@@ -38,6 +38,7 @@ from dvae_tpu_torch.models import LSTMVad
 from dvae_tpu_torch.models.convert import lstm_vad_state_dict_from_jax, state_dict_from_jax
 from dvae_tpu_torch.ops import stft_power
 from dvae_tpu_torch.ops.stft import StftConfig
+from dvae_tpu_torch.parallel import make_mesh
 from dvae_tpu_torch.train import checkpoint as tckpt
 from dvae_tpu_torch.train.sequence import (
     batch_utterances,
@@ -201,9 +202,26 @@ def test_fit_sequence_resume_is_bitwise(tmp_path):
     assert hist_r[0] == hist[2]
     for k, v in full.state_dict().items():
         assert torch.equal(v, resumed.state_dict()[k]), k
-    with pytest.raises(NotImplementedError, match="A14"):
-        fit_sequence(full, None, None, None, train, valid, batcher, tmp_path, prefix="VAD",
-                     mesh=object())
+    # a mesh of two CPU shards pads each batch to an even count with fully
+    # masked zero rows: the same run up to rounding; steps built without
+    # the mesh are refused
+    mesh = make_mesh(2, device="cpu")
+    tm = LSTMVad(513, 16, 1, generator=torch.Generator().manual_seed(0))
+    opt = adam(tm.parameters(), 1e-3)
+    with pytest.raises(ValueError, match="same mesh"):
+        fit_sequence(tm, opt, make_lstm_vad_step(tm, opt), make_lstm_vad_eval(tm), train,
+                     valid, batcher, tmp_path / "mesh", prefix="VAD", mesh=mesh)
+    hist_m = fit_sequence(tm, opt, make_lstm_vad_step(tm, opt, mesh=mesh),
+                          make_lstm_vad_eval(tm, mesh=mesh), train, valid, batcher,
+                          tmp_path / "mesh", prefix="VAD", end_epoch=4, batch_size=3,
+                          mesh=mesh, log=lambda m: None)
+    for hm, h in zip(hist_m, hist, strict=True):
+        for part in ("train", "valid"):
+            for k, v in h[part].items():
+                np.testing.assert_allclose(hm[part][k], v, rtol=1e-5, err_msg=k)
+    for k, v in full.state_dict().items():
+        np.testing.assert_allclose(tm.state_dict()[k].numpy(), v.numpy(), atol=2e-6,
+                                   err_msg=k)
 
 
 def test_wav_io_matches_jax(tmp_path):

@@ -100,7 +100,9 @@ def test_serve_cli_without_platform_needs_a_card(ckpt):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--data-parallel"], "A14"),
+    # the parser takes --data-parallel; the service under a mesh:
+    # tests/test_torch_port_parallel.py
+    (["--data-parallel", "--platform", "tpu"], "invalid choice: 'tpu'"),
     (["--model-class", "m2"], "m2 has no classifier"),
     (["--std-norm"], "--std-norm requires --norm-h5"),
     (["--platform", "tpu"], "invalid choice: 'tpu'"),

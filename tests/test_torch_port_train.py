@@ -29,6 +29,7 @@ from dvae_tpu.train.steps import adam as jadam
 from dvae_tpu_torch.data.datasets import FrameDataset
 from dvae_tpu_torch.models import CVAE, VAE
 from dvae_tpu_torch.models.convert import state_dict_from_jax
+from dvae_tpu_torch.parallel import Mesh, make_mesh
 from dvae_tpu_torch.train import checkpoint as tckpt
 from dvae_tpu_torch.train import loop as tloop
 from dvae_tpu_torch.train.loop import LoopConfig, fit_vae
@@ -188,10 +189,11 @@ def test_elbo_steps_match_jax(std_norm):
 
 
 def test_conditional_raises(tmp_path):
-    """The conditional (M2) step trains and raises only without labels;
-    what stays unported (a mesh) still raises, naming its ROADMAP item, and
-    so does a dispatch of fewer than one step. Parity with JAX:
-    tests/test_torch_port_train_cond.py."""
+    """The conditional (M2) step trains and raises only without labels; a
+    mesh of two CPU shards trains (and equals the one-process run of its
+    size, tests/test_torch_port_parallel.py), one over two devices in one
+    process raises, and so does a dispatch of fewer than one step. Parity
+    with JAX: tests/test_torch_port_train_cond.py."""
     tm = CVAE(513, 1, 16, H)
     step = make_train_step(tm, adam(tm.parameters()), conditional=True)
     x = torch.from_numpy(_frames(32, 5))
@@ -205,10 +207,15 @@ def test_conditional_raises(tmp_path):
     train = FrameDataset.from_arrays(_frames(64, 1), y.numpy().repeat(2, 0))
     for cfg, kw, err, item in (
             (LoopConfig(end_epoch=2, steps_per_dispatch=0), {}, ValueError, "steps_per_dispatch"),
-            (LoopConfig(end_epoch=2), {"mesh": object()}, NotImplementedError, "A14")):
+            (LoopConfig(end_epoch=2), {"mesh": Mesh(["cpu", "meta"])}, ValueError,
+             "one process per GPU")):
         with pytest.raises(err, match=item):
             fit_vae(CVAE(513, 1, 16, H), train, train, tmp_path, "M2", conditional=True,
                     cfg=cfg, device="cpu", **kw)
+    _, hist = fit_vae(CVAE(513, 1, 16, H), train, train, tmp_path / "mesh", "M2",
+                      conditional=True, cfg=LoopConfig(batch_size=50, end_epoch=2),
+                      mesh=make_mesh(2, device="cpu"))
+    assert np.isfinite(hist[0]["valid"]["elbo"])
 
 
 def test_frame_dataset_h5_matches_jax(tmp_path):
@@ -319,8 +326,13 @@ def test_fit_vae_std_norm_and_unported_options(tmp_path):
     assert np.isfinite(hist[0]["valid"]["elbo"])
     with pytest.raises(ValueError, match="needs a dataset with labels"):
         _fit(tmp_path, LoopConfig(end_epoch=2), conditional=True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        _fit(tmp_path, LoopConfig(end_epoch=2), mesh=object())
+    # a mesh of size 1 is the run without one, bitwise
+    one, _, hist_1 = _fit(tmp_path / "one", LoopConfig(end_epoch=3))
+    meshed, _, hist_m = _fit(tmp_path / "mesh", LoopConfig(end_epoch=3),
+                             mesh=make_mesh(1, device="cpu"))
+    assert hist_m == hist_1
+    for k, v in one.state_dict().items():
+        assert torch.equal(v, meshed.state_dict()[k]), k
     with pytest.raises(ValueError, match="steps_per_dispatch"):
         _fit(tmp_path, LoopConfig(end_epoch=2, steps_per_dispatch=0))
     with pytest.raises(FileNotFoundError, match="no epoch-4 checkpoint"):

@@ -331,15 +331,42 @@ def test_trainer_cli_parse_errors_match_jax(corpus, monkeypatch, capsys, jax_cac
 
 
 @pytest.mark.parametrize("argv,said", [
-    (["--data-parallel"], "ROADMAP A14"), (["--multihost"], "ROADMAP A14"),
+    (["--data-parallel"], "the run without the flag"),
+    (["--multihost"], "--multihost was requested"),
     (["--no-in-memory", "--frames", "x.npz"], "an .npz frame set is read into memory"),
 ])
-def test_trainer_cli_refuses_what_is_not_ported(corpus, capsys, argv, said):
+def test_trainer_cli_refuses_what_is_not_ported(corpus, tmp_path, monkeypatch, capsys, argv,
+                                                said):
+    """``--data-parallel`` launched alone trains at world size 1 over the
+    process's device: the run without the flag, bit for bit (two processes
+    under a gloo group: tests/test_torch_port_parallel.py). ``--multihost``
+    without a torchrun group of more than one process fails loudly, naming
+    torchrun; a streamed ``.npz`` is a parse error."""
     from dvae_tpu_torch.cli import training_m1
 
-    with pytest.raises(SystemExit) as exc:
-        training_m1.main(["--data-root", str(corpus[0]), "--platform", "cpu", *argv])
-    assert exc.value.code == 2 and said in capsys.readouterr().err
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    base = ["--data-root", str(corpus[0]), "--platform", "cpu"]
+    if argv == ["--data-parallel"]:
+        small = [*base, "--end-epoch", "3", "--batch-size", "64", "--h-dim", "16"]
+        _, hist = training_m1.main([*small, "--models-root", str(tmp_path / "plain")])
+        _, hist_dp = training_m1.main([*small, "--models-root", str(tmp_path / "dp"), *argv])
+        assert hist_dp == hist, said
+        weights = [a for a in (tmp_path / "plain").rglob("M1_epoch_*.pt")
+                   if not a.name.endswith(".opt.pt")]
+        assert weights
+        for a in sorted(weights):
+            b = tmp_path / "dp" / a.relative_to(tmp_path / "plain")
+            for k, v in torch.load(a, weights_only=True).items():
+                assert torch.equal(v, torch.load(b, weights_only=True)[k]), (a.name, k)
+    elif argv == ["--multihost"]:
+        with pytest.raises(RuntimeError, match=said) as exc:
+            training_m1.main([*base, *argv])
+        assert "torchrun" in str(exc.value)
+    else:
+        with pytest.raises(SystemExit) as exc:
+            training_m1.main([*base, *argv])
+        assert exc.value.code == 2 and said in capsys.readouterr().err
 
 
 def test_trainer_cli_trains_on_an_npz_frame_set(corpus, tmp_path, capsys):

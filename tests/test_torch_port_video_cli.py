@@ -257,9 +257,9 @@ def _train_records(monkeypatch, module):
     _recorder(monkeypatch, module, "fit_sequence", fits, result=[])
     real = module.make_lstm_vad_step
 
-    def step(model, tx, eps=1e-8, norm=None):
+    def step(model, tx, eps=1e-8, norm=None, **mesh):  # the port's takes mesh=
         steps.append((model, norm))
-        return real(model, tx, eps, norm)
+        return real(model, tx, eps, norm, **mesh)
 
     monkeypatch.setattr(module, "make_lstm_vad_step", step)
     return fits, steps
