@@ -240,9 +240,26 @@ Phases, in order; any failure exits non-zero:
    there failing loudly; ``av_fusion_study --train --epochs 2``; these six
    processes side by side; then B1 at a shard's rows and B2 at the
    data-parallel VAD batch against their plain versions and timed, each
+   with the card's name and power limit;
+19. ``McemConfig.fast_stats`` (ROADMAP A15), the default of both packages,
+   after phase 18: B1 reading bf16 x2 (and an E-step's Vb; a WF segment
+   keeps the f32 Vb for its sums and rounds it at the energy) and emitting
+   bf16 samples, against the plain chain on the same planes at the
+   phase-3 batch's 10,240 rows, both bodies, E-step and WF, frozen at the
+   full budget's steps and live (the emission's dtype, its one-ulp flips
+   by share and size, the WF sums, the partition); the bf16 body at 512
+   512 in the lean layout; pmcem's segments at 102,400 rows; the
+   frozen-chain config in both bodies through the kernel and the plain
+   chain with phase 3's limits; ``enhance_batch`` at the full budget at
+   fast_stats True and False (niter + 1 launches each, medians of three
+   walls, peak device memory) and pmcem at fast_stats; then B1's segments
+   at both settings and the NMF M-step on bf16 and f32 samples (CUDA
+   events) beside their bounds by the bytes at the planes' dtypes, each
    with the card's name and power limit.
 
-The second-to-last line is a JSON summary of the kernels; the last line is
+The frozen-chain comparisons of phases 3, 9, 10, 11, 17 and 18 run at
+``fast_stats=False``: their limits were set for f32 planes, and phase 19
+holds the bf16 planes. The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
 ships no checkpoint. Training writes its checkpoints under ``build/``.
 Imports nothing of JAX.
@@ -336,13 +353,14 @@ def vad_labels(clean: np.ndarray, n_frames: int, hop: int, half: int) -> np.ndar
     return (e[centres] > 1e-3 * e.max()).astype(np.float32)
 
 
-def chain_work(rows, f, l, widths, n_burn, n_samples, wf):
+def chain_work(rows, f, l, widths, n_burn, n_samples, wf, fast_stats=False):
     """(product flops, elementwise flops, special functions, bytes) one
     chain segment needs with a decoder of hidden ``widths``: every step
     decodes all rows (plus the initial decode); each input is read once and
-    each output written once. The special functions are the exp, log and
-    divide per (row, step, bin), and WF mode's two divides per emitted
-    (row, bin)."""
+    each output written once, at its dtype: 4 bytes, except under
+    ``fast_stats`` 2 for x2, for an E-step's Vb and for its emitted samples.
+    The special functions are the exp, log and divide per (row, step, bin),
+    and WF mode's two divides per emitted (row, bin)."""
     steps = n_burn + n_samples + 1
     dims = (l, *widths, f)
     layer_macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
@@ -351,9 +369,11 @@ def chain_work(rows, f, l, widths, n_burn, n_samples, wf):
     elem = rows * steps * f * 6 + (rows * n_samples * f * 5 if wf else 0)
     sfu = rows * steps * f * 3 + (rows * n_samples * f * 2 if wf else 0)
     weights = layer_macs + sum(widths) + f
-    reads = 2 * rows * f + rows + rows * l + (steps - 1) * rows * (l + 1) + weights
-    writes = rows * l + (2 * rows * f if wf else n_samples * rows * f)
-    return 2 * macs, elem, sfu, 4 * (reads + writes)
+    half = 2 if fast_stats else 4
+    x2_vb = rows * f * (half + (4 if wf else half))
+    reads = 4 * (rows + rows * l + (steps - 1) * rows * (l + 1) + weights) + x2_vb
+    writes = 4 * rows * l + (4 * 2 * rows * f if wf else half * n_samples * rows * f)
+    return 2 * macs, elem, sfu, reads + writes
 
 
 def chain_bound_ms(work, fast):
@@ -367,6 +387,17 @@ def chain_bound_ms(work, fast):
     t_ops = max(mma / PEAK_BF16_FLOPS, elem / PEAK_F32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def m_step_work(r, b, n, f, vs_bytes):
+    """(flops, bytes) the least one NMF M-step (``enhance/nmf.py::nmf_m_step``)
+    needs with R = ``r`` samples of (B, N, F) = (``b``, ``n``, ``f``) stored
+    at ``vs_bytes`` a value: each of its three stages (W, H, g) reads the
+    samples once and x2 once; per sample element the W and H stages take
+    g Vs + Vb, the floor, 1/Vx, its square and two sums (7 operations
+    each), the g stage those and x2 Vs, two products and two sums (9)."""
+    elems = r * b * n * f
+    return 23 * elems, 3 * (elems * vs_bytes + 4 * b * n * f)
 
 
 def stft_power_work(rows, t_total, nfft, n_bins, log_out):
@@ -397,14 +428,15 @@ def log_err(got, p):
 
 
 def frozen_vs_plain(model, frozen, wavs, batch, frames, plain_chain, name: str,
-                    phase: int) -> None:
+                    phase: int, mask_limit: float = 1e-3) -> None:
     """A frozen-chain McemConfig (``frozen``) through the kernel and through
-    the plain chain, with phase 3's limits: ``run_mcem`` on ``batch`` (x2,
-    z0, mask, as the main path sees the phase-3 batch), then
-    ``enhance_batch`` on ``wavs`` (float32 wire, device-side noise
-    estimate), whose waveforms are compared where the ISTFT's window
-    normalizer is full (the first and last nfft samples of an utterance
-    divide by a normalizer down to ~1e-10, as in the reference)."""
+    the plain chain, with phase 3's limits (the masks' at ``mask_limit``):
+    ``run_mcem`` on ``batch`` (x2, z0, mask, as the main path sees the
+    phase-3 batch), then ``enhance_batch`` on ``wavs`` (float32 wire,
+    device-side noise estimate), whose waveforms are compared where the
+    ISTFT's window normalizer is full (the first and last nfft samples of
+    an utterance divide by a normalizer down to ~1e-10, as in the
+    reference)."""
     import torch
 
     from dvae_tpu_torch.enhance.mcem import run_mcem
@@ -420,9 +452,9 @@ def frozen_vs_plain(model, frozen, wavs, batch, frames, plain_chain, name: str,
     torch.cuda.synchronize()
     mask_err, cost_err, part = frozen_agreement(rk, rp, maskb)
     log(f"phase {phase}: {name} frozen-chain run_mcem kernel vs plain: max mask diff "
-        f"{mask_err:.3e} (limit 1e-3), max cost rel diff {cost_err:.3e} (limit 1e-4), "
-        f"|WFs + WFn - 1| <= {part:.3e} on valid frames (limit 1e-5)")
-    check(mask_err < 1e-3 and cost_err < 1e-4 and part < 1e-5,
+        f"{mask_err:.3e} (limit {mask_limit:g}), max cost rel diff {cost_err:.3e} (limit "
+        f"1e-4), |WFs + WFn - 1| <= {part:.3e} on valid frames (limit 1e-5)")
+    check(mask_err < mask_limit and cost_err < 1e-4 and part < 1e-5,
           f"{name} frozen run_mcem: kernel vs plain")
 
     out_k = enh_k.enhance_batch(wavs, seed=SEED)
@@ -944,7 +976,7 @@ def conditioned_phase(wavs, cleans, cuda_ms, plain_chain, agree, tag: str,
         x2b, z0b, maskb, yb = inputs[name]
         for fast in (True, False):
             body = "bf16" if fast else "f32"
-            frozen = McemConfig(var_rw=0.0, fast_decoder=fast)
+            frozen = McemConfig(var_rw=0.0, fast_decoder=fast, fast_stats=False)
             with torch.inference_mode():
                 rk = run_mcem(enh.mats, x2b, z0b, maskb, SEED, frozen, y=yb)
                 with plain_chain():
@@ -1180,7 +1212,7 @@ def engines_phase(model, wavs, cleans, mc, batch, cuda_ms, plain_chain, agree, t
           and np.isfinite(enh_v5.last_cost).all(), "M2-info pmcem outputs finite")
 
     # ---- 10b. frozen chains, kernel vs plain, at the main path's rows
-    frozen = dataclasses.replace(mc, var_rw=0.0, niter=5)
+    frozen = dataclasses.replace(mc, var_rw=0.0, niter=5, fast_stats=False)
     for name, fn in (("pmcem", run_pmcem), ("peem-wf", run_peem_wf)):
         with torch.inference_mode():
             rk = fn(mats, x2b, z0b, maskb, SEED, frozen)
@@ -1577,7 +1609,7 @@ def serving_phase(model, wavs, cuda_ms, plain_chain, agree, tag: str, work: str)
 
     # ---- 11d. a frozen served batch against the plain chain, both bodies
     for fast in (True, False):
-        fcfg = EnhancerConfig(mcem=McemConfig(var_rw=0.0, fast_decoder=fast),
+        fcfg = EnhancerConfig(mcem=McemConfig(var_rw=0.0, fast_decoder=fast, fast_stats=False),
                               noise_from_partition=False, wire_dtype="float32")
         fsvc = EnhanceService(copy.deepcopy(model), "m1", fcfg,
                               ServeConfig(batch_size=bsz, batch_window_ms=1000.0,
@@ -3556,7 +3588,8 @@ def depth_phase(wavs, cleans, batch, frames, cuda_ms, plain_chain, agree, tag: s
             if h_dim in (DEPTH_F32[1], DEPTH_BF16[0]):
                 with torch.inference_mode():
                     z0b = enh.model.encode(x2b, sample=False)[1]
-                frozen_vs_plain(model, McemConfig(var_rw=0.0), wavs, (x2b, z0b, maskb), frames,
+                frozen_vs_plain(model, McemConfig(var_rw=0.0, fast_stats=False), wavs,
+                                (x2b, z0b, maskb), frames,
                                 plain_chain, f"--h-dim {' '.join(map(str, h_dim))} "
                                              f"{body(fast)}", 17)
 
@@ -3793,7 +3826,7 @@ def parallel_phase(model, wavs, cuda_ms, tag: str, work: str, tree: str, vad_npz
         f"budget) bitwise the run without a mesh, {n_mesh} bf16-body launches (niter + 1) {tag}")
 
     # ---- 18b. two shards on this one card, frozen chain
-    frozen = EnhancerConfig(mcem=McemConfig(var_rw=0.0), wire_dtype="float32")
+    frozen = EnhancerConfig(mcem=McemConfig(var_rw=0.0, fast_stats=False), wire_dtype="float32")
     rows_seen = []
 
     def seen(*a, **kw):
@@ -3927,6 +3960,304 @@ def parallel_phase(model, wavs, cuda_ms, tag: str, work: str, tree: str, vad_npz
              "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": n_two,
              "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
              "bound_by": b_by, "library_ms": None}, b2]
+
+
+# the emitted bf16 samples (fast_stats), kernel against the plain chain: each
+# side rounds its own f32 Vs, so where the two straddle a bf16 rounding
+# boundary they differ by one bf16 ulp (at most 2^-7 relative). The f32 body
+# differs from the plain chain by f32 rounding only, so few elements flip;
+# the bf16 body's own differences (BF16_MAX_REL on its 1% of elements, see
+# bf16_share_limit) come on top
+EMIT_ULP, EMIT_F32_SHARE = 2.0 ** -7, 1e-3
+# phase 19's frozen run_mcem, the bf16 body against the plain chain at
+# fast_stats: the largest mask difference (see 19d)
+FAST_STATS_BF16_MASK = 5e-3
+
+
+def emitted_agreement(a, b, fast: bool, units: int = 256) -> tuple:
+    """bf16 samples ``a`` (kernel) against ``b`` (plain): (max relative
+    difference, share of elements that differ, their limits)."""
+    a, b = a.float(), b.float()
+    rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    differ = float((a != b).float().mean())
+    if fast:
+        share_lim = 1.0 - bf16_share_limit(units) + EMIT_F32_SHARE
+        return rel, differ, BF16_MAX_REL + EMIT_ULP, share_lim
+    return rel, differ, EMIT_ULP, EMIT_F32_SHARE
+
+
+def fast_stats_phase(model, wavs, batch, frames, cuda_ms, plain_chain, agree, tag: str) -> list:
+    """Phase 19 on the card: ``McemConfig.fast_stats`` (ROADMAP A15), the
+    default of both packages. B1 reads bf16 x2 (and an E-step's Vb; a WF
+    segment's Vb stays f32, rounded at the energy) and emits bf16 samples.
+    Both bodies against the plain chain at the phase-3 batch's rows
+    (``batch``: x2, z0, mask), E-step and WF, frozen at the full budget's
+    steps and live; the bf16 body at 512 512 in the lean layout; pmcem's
+    segments at R x those rows; the frozen-chain config through the kernel
+    and the plain chain with phase 3's limits; ``enhance_batch`` at the
+    full budget at fast_stats True and False (launches, medians of the
+    walls, peak device memory), pmcem at fast_stats; then B1's segments and
+    the NMF M-step at both settings (CUDA events) beside their bounds by
+    the bytes at the planes' dtypes. Returns the kernels-line entries."""
+    import torch
+
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.mcem import McemConfig
+    from dvae_tpu_torch.enhance.mh_chain import (
+        extract_decoder_mlp,
+        lean_layout,
+        make_chain_noise,
+        mh_chain_reference,
+        run_mh_chain,
+    )
+    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf, nmf_m_step
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import VAE
+    from dvae_tpu_torch.models.blocks import init_xavier_
+    from dvae_tpu_torch.ops.stft import StftConfig
+
+    dev, sync, half = torch.device("cuda"), torch.cuda.synchronize, torch.bfloat16
+    t_phase = time.perf_counter()
+    x2b, z0b, maskb = batch
+    b, n_pad, f = x2b.shape
+    rows, l = b * n_pad, z0b.shape[-1]
+    mc = McemConfig()
+    check(mc.fast_stats and mc.fast_decoder, "the default config runs fast_stats, bf16 body")
+    enh = Enhancer(model, EnhancerConfig())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    w, h, g = init_nmf(gen, b, n_pad, f, mc.nmf_rank, mc.eps, device=dev)
+    x2_r = x2b.reshape(rows, f)
+    vb_r = compute_vb(w, h).reshape(rows, f).contiguous()
+    g_r = g.reshape(rows).contiguous()
+    z_r = z0b.reshape(rows, l).contiguous()
+
+    def body(fast):
+        return "bf16" if fast else "f32"
+
+    def planes(x2, vb, wf):
+        """The planes as run_mcem hands them to the chain under fast_stats."""
+        return x2.to(half), vb if wf else vb.to(half)
+
+    def budget(wf):
+        return (mc.burnin_wf, mc.nsamples_wf) if wf else (mc.burnin_e_step, mc.nsamples_e_step)
+
+    def held(mats, x2, vb, gg, z, fast, wf, var_rw, steps, what, units=256):
+        """One segment at fast_stats through the kernel and the plain chain,
+        on the same planes and noise: rows that end at the same z (all of a
+        frozen chain's, >= 99% of a live one's), the emission's dtype and
+        agreement, the WF sums and the partition. Returns (max abs err,
+        the printed comparison)."""
+        noise = make_chain_noise(sum(steps), x2.shape[0], l, gen, dev)
+        args = (mats, *planes(x2, vb, wf), gg, z, None, noise, *steps, var_rw, wf, fast)
+        zk, *ok = run_mh_chain(*args, fast_stats=True)
+        zr, *orf = mh_chain_reference(*args, fast_stats=True)
+        sync()
+        same = (zk - zr).abs().amax(-1) < 1e-4
+        share = float(same.float().mean())
+        moved = float((zk != z).any(-1).float().mean())
+        if var_rw == 0.0:
+            check(torch.equal(zk, z), f"{what}: the frozen chain moved")
+        else:
+            check(share > 0.99 and moved > 0.5, f"{what}: {share:.4f} of rows end at the same z, "
+                                               f"{moved:.3f} moved")
+        said = f"{share:.4f} of rows end at the same z" + (
+            f" (limit 0.99), {moved:.3f} moved" if var_rw else "")
+        if wf:
+            said += "; " + "; ".join(agree(a[same], b_[same], fast, 1e-4 if var_rw else 1e-5,
+                                           f"{what}: WF sums", units)
+                                     for a, b_ in zip(ok, orf))
+            part = float(((ok[0] + ok[1]) / steps[1] - 1.0).abs().max())
+            check(part < 1e-5, f"{what}: WFs + WFn = 1 ({part:.3e})")
+            said += f"; |WFs + WFn - 1| <= {part:.3e} (limit 1e-5)"
+            err = max(float((a - b_).abs().max()) for a, b_ in zip(ok, orf))
+        else:
+            check(ok[0].dtype == orf[0].dtype == half, f"{what}: emitted {ok[0].dtype}")
+            rel, differ, rel_lim, differ_lim = emitted_agreement(
+                ok[0][:, same], orf[0][:, same], fast, units)
+            check(rel <= rel_lim and differ <= differ_lim, f"{what}: bf16 samples")
+            said += (f"; bf16 samples: max rel diff {rel:.3e} (limit {rel_lim:.3e}), "
+                     f"{differ:.2e} of elements differ (limit {differ_lim:.2e})")
+            err = float((ok[0].float() - orf[0].float()).abs().max())
+        return err, said
+
+    # ---- 19a. both bodies at the main path's rows, E-step and WF, frozen and live
+    max_abs = {}
+    for fast in (True, False):
+        for wf in (False, True):
+            for var_rw in (0.0, mc.var_rw):
+                steps = budget(wf) if var_rw == 0.0 else (6, 6)
+                what = (f"{body(fast)} body, {'frozen' if var_rw == 0.0 else 'live'} "
+                        f"{'WF' if wf else 'E-step'} segment, {steps[0]}+{steps[1]} steps")
+                err, said = held(enh.mats, x2_r, vb_r, g_r, z_r, fast, wf, var_rw, steps, what)
+                if var_rw == 0.0:
+                    max_abs[fast, wf] = err
+                log(f"phase 19: fast_stats, {what} at {rows} rows: {said}")
+
+    # ---- 19b. the lean layout: the bf16 body at 512 512 in WF mode
+    wide = extract_decoder_mlp(
+        init_xavier_(VAE(f, l, (512, 512)), torch.Generator().manual_seed(SEED)).to(dev), l)
+    check(lean_layout(wide, f, l, True, True), "512 512 WF runs the lean layout")
+    for var_rw in (0.0, mc.var_rw):
+        what = f"bf16 body 512 512 (lean layout), {'frozen' if var_rw == 0.0 else 'live'} WF"
+        _, said = held(wide, x2_r, vb_r, g_r, z_r, True, True, var_rw, (6, 6), what, 1024)
+        log(f"phase 19: fast_stats, {what} segment, 6+6 steps at {rows} rows: {said}")
+
+    # ---- 19c. pmcem's segments at R x the rows (the R copies of bf16 planes)
+    r = mc.pmcem_chains
+    x2_p, vb_p, g_p = x2_r.repeat(r, 1), vb_r.repeat(r, 1), g_r.repeat(r)
+    z_p = z_r.repeat(r, 1) + math.sqrt(mc.var_rw) * torch.randn(
+        (r * rows, l), generator=gen, device=dev)
+    pm_steps = {False: (mc.pmcem_steps - 1, 1),
+                True: (mc.pmcem_wf_burn, -(-mc.nsamples_wf // r))}
+    for wf in (False, True):
+        for var_rw in (0.0, mc.var_rw):
+            what = (f"pmcem {'frozen' if var_rw == 0.0 else 'live'} {'WF' if wf else 'E-step'} "
+                    f"segment, {pm_steps[wf][0]}+{pm_steps[wf][1]} steps")
+            _, said = held(enh.mats, x2_p, vb_p, g_p, z_p, True, wf, var_rw, pm_steps[wf], what)
+            log(f"phase 19: fast_stats, bf16 body, {what} at {r * rows} rows: {said}")
+    del x2_p, vb_p, g_p, z_p
+
+    # ---- 19d. the frozen-chain config at fast_stats, kernel vs plain, phase 3's
+    # limits but the bf16 body's masks: its Vs differs from the plain chain's
+    # by up to ~1e-3 in a few rows, and where that puts the two sides of a bf16
+    # boundary a sample, then an R-sum, moves by one bf16 ulp (~0.4-0.8%) in
+    # every EM iteration: measured 2.656e-3 here (NVIDIA H100 80GB HBM3, 700 W)
+    # against 1.2e-4 at phase 3's f32 planes
+    for fast in (True, False):
+        frozen_vs_plain(model, McemConfig(var_rw=0.0, fast_decoder=fast), wavs, batch, frames,
+                        plain_chain, f"fast_stats {body(fast)}", 19,
+                        mask_limit=FAST_STATS_BF16_MASK if fast else 1e-3)
+
+    # ---- 19e. enhance_batch at the full budget, fast_stats True and False
+    stft_cfg = StftConfig()
+    nfft, hop = stft_cfg.nfft, stft_cfg.hop
+
+    def partition_err(out):
+        worst = 0.0
+        for (s_, n_), x, fr in zip(out, wavs, frames):
+            core = slice(nfft, min(len(x), (fr - 1) * hop + nfft) - nfft)
+            worst = max(worst, float(np.abs(s_ + n_ - x)[core].max()) / float(np.abs(x).max()))
+        return worst
+
+    enhancers = {stats: Enhancer(model, EnhancerConfig(mcem=McemConfig(fast_stats=stats)))
+                 for stats in (True, False)}
+    seen_main, peak_gib = {}, {}
+    for stats, e in enhancers.items():
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        mh_chain.launches = mh_chain.launches_mma = 0
+        with chain_calls() as seen:
+            out = e.enhance_batch(wavs, seed=SEED)
+        peak_gib[stats] = torch.cuda.max_memory_allocated() / 2**30
+        n_all, n_mma = mh_chain.launches, mh_chain.launches_mma
+        want = [(rows, False)] * mc.niter + [(rows, True)]
+        part = partition_err(out)
+        finite = (all(np.isfinite(s_).all() and np.isfinite(n_).all() for s_, n_ in out)
+                  and np.isfinite(e.last_cost).all())
+        log(f"phase 19: enhance_batch B={b} fast_stats={stats}: {n_all} mh_chain launches "
+            f"({n_mma} of the bf16 body; expected niter + 1 = {mc.niter + 1}), cost "
+            f"{e.last_cost[0]:.5f} -> {e.last_cost[-1]:.5f}, outputs finite: {finite}, Wiener "
+            f"partition {part:.3e} (limit 1e-4); peak device memory {peak_gib[stats]:.3f} GiB "
+            f"{tag}")
+        check(n_all == n_mma == mc.niter + 1 and seen == want, f"fast_stats={stats}: launches")
+        check(finite and part < 1e-4, f"fast_stats={stats}: finite outputs, partition")
+        seen_main[stats] = seen
+    walls = {True: [], False: []}
+    for _ in range(3):
+        for stats, e in enhancers.items():
+            sync()
+            t0 = time.perf_counter()
+            e.enhance_batch(wavs, seed=SEED)
+            walls[stats].append(time.perf_counter() - t0)
+    wall = {stats: float(np.median(v)) for stats, v in walls.items()}
+
+    pm = Enhancer(model, EnhancerConfig(engine="pmcem"))
+    mh_chain.launches = mh_chain.launches_mma = 0
+    with chain_calls() as seen_pm:
+        out = pm.enhance_batch(wavs, seed=SEED)
+    n_pm = mh_chain.launches_mma
+    check(n_pm == mh_chain.launches == mc.niter + 1
+          and seen_pm == [(r * rows, False)] * mc.niter + [(r * rows, True)], "pmcem launches")
+    part = partition_err(out)
+    check(all(np.isfinite(s_).all() for s_, _ in out) and part < 1e-4, "pmcem outputs")
+    log(f"phase 19: enhance_batch B={b} pmcem at fast_stats: {n_pm} bf16-body launches at "
+        f"{r * rows} rows, Wiener partition {part:.3e} (limit 1e-4)")
+
+    # ---- 19f. times: B1's segments and the M-step at both settings, beside the bounds
+    seg = {}
+    for fast, wf, stats in ((True, False, True), (True, False, False), (True, True, True),
+                            (True, True, False), (False, False, True)):
+        steps = budget(wf)
+        noise = make_chain_noise(sum(steps), rows, l, gen, dev)
+        x2s, vbs = planes(x2_r, vb_r, wf) if stats else (x2_r, vb_r)
+        args = (enh.mats, x2s, vbs, g_r, z_r, None, noise, *steps, mc.var_rw, wf, fast)
+        k_ms = cuda_ms(lambda: run_mh_chain(*args, fast_stats=stats), reps=10, warm=2)
+        p_ms = cuda_ms(lambda: mh_chain_reference(*args, fast_stats=stats), reps=3)
+        work = chain_work(rows, f, l, enh.mats.widths, *steps, wf, stats)
+        b_ms, b_by = chain_bound_ms(work, fast)
+        seg[fast, wf, stats] = (k_ms, p_ms, b_ms, b_by)
+        log(f"phase 19: mh_chain {body(fast)} body, {'WF' if wf else 'E-step'} segment "
+            f"fast_stats={stats}, rows={rows} steps={steps[0]}+{steps[1]}: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({work[3] / 1e6:.1f} MB), "
+            f"kernel at {100 * b_ms / k_ms:.2f}% of bound {tag}")
+    pm_steps_e = pm_steps[False]
+    x2_p, vb_p = (t.repeat(r, 1) for t in planes(x2_r, vb_r, False))
+    g_p, z_p = g_r.repeat(r), z_r.repeat(r, 1)
+    noise = make_chain_noise(sum(pm_steps_e), r * rows, l, gen, dev)
+    args = (enh.mats, x2_p, vb_p, g_p, z_p, None, noise, *pm_steps_e, mc.var_rw, False, True)
+    pk_ms = cuda_ms(lambda: run_mh_chain(*args, fast_stats=True), reps=10, warm=2)
+    pp_ms = cuda_ms(lambda: mh_chain_reference(*args, fast_stats=True), reps=3)
+    fargs = (*args[:9], 0.0, False, True)
+    _, sk = run_mh_chain(*fargs, fast_stats=True)
+    _, sr = mh_chain_reference(*fargs, fast_stats=True)
+    pm_abs = float((sk.float() - sr.float()).abs().max())
+    pwork = chain_work(r * rows, f, l, enh.mats.widths, *pm_steps_e, False, True)
+    pb_ms, pb_by = chain_bound_ms(pwork, True)
+    log(f"phase 19: mh_chain bf16 body, pmcem E-step segment fast_stats, rows={r * rows} "
+        f"steps={pm_steps_e[0]}+{pm_steps_e[1]}: kernel {pk_ms:.4f} ms, plain {pp_ms:.4f} ms, "
+        f"bound {pb_ms:.4f} ms by {pb_by} ({pwork[3] / 1e6:.1f} MB) {tag}")
+    del x2_p, vb_p, g_p, z_p, noise, args, fargs, sk, sr
+
+    m_ms = {}
+    for stats in (True, False):
+        vs_s = (torch.rand((mc.nsamples_e_step, b, n_pad, f), generator=gen, device=dev) + 0.05
+                ).to(half if stats else torch.float32)
+        m_ms[stats] = cuda_ms(lambda: nmf_m_step(x2b, vs_s, w, h, g, maskb, mc.eps), reps=5)
+        fl, nbytes = m_step_work(mc.nsamples_e_step, b, n_pad, f, 2 if stats else 4)
+        mb_ms, mb_by = bound_ms(fl, nbytes)
+        log(f"phase 19: nmf_m_step R={mc.nsamples_e_step} B={b} N={n_pad} on "
+            f"{'bf16' if stats else 'f32'} samples: {m_ms[stats]:.4f} ms, bound {mb_ms:.4f} ms "
+            f"by {mb_by} ({nbytes / 1e6:.1f} MB, {fl / 1e9:.2f} GFLOP), at "
+            f"{100 * mb_ms / m_ms[stats]:.2f}% of bound {tag}")
+        del vs_s
+    for stats in (True, False):
+        chain_s = (mc.niter * seg[True, False, stats][0] + seg[True, True, stats][0]) / 1e3
+        m_s = mc.niter * m_ms[stats] / 1e3
+        log(f"phase 19: enhance_batch B={b} fast_stats={stats} wall "
+            f"{', '.join(f'{t:.4f}' for t in walls[stats])} s (median {wall[stats]:.4f} s, "
+            f"{b / wall[stats]:.2f} utt/s); chain (bf16 body) {chain_s:.4f} s "
+            f"({100 * chain_s / wall[stats]:.1f}%), M-step {m_s:.4f} s "
+            f"({100 * m_s / wall[stats]:.1f}%), rest {wall[stats] - chain_s - m_s:.4f} s; peak "
+            f"device memory {peak_gib[stats]:.3f} GiB {tag}")
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s in all")
+
+    def entry(name, launches, t, err):
+        k_ms, p_ms, b_ms, b_by = t
+        return {"name": name, "route": "cuda", "source": "dvae_tpu_torch/csrc/mh_chain.cu",
+                "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": launches,
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
+
+    def estep(seen):
+        return sum(not wf for _, wf in seen)
+
+    n_e = estep(seen_main[True])
+    return [entry("mh_chain (fast_stats, E-step)", n_e, seg[True, False, True],
+                  max_abs[True, False]),
+            entry("mh_chain (fast_stats, WF)", len(seen_main[True]) - n_e,
+                  seg[True, True, True], max_abs[True, True]),
+            entry("mh_chain (fast_stats, pmcem E-step)", estep(seen_pm),
+                  (pk_ms, pp_ms, pb_ms, pb_by), pm_abs)]
 
 
 def main() -> int:
@@ -4118,7 +4449,7 @@ def main() -> int:
         check(mh_chain.launches == before, "the plain run launched the kernel")
 
     for fast in (True, False):
-        frozen_vs_plain(model, McemConfig(var_rw=0.0, fast_decoder=fast), wavs,
+        frozen_vs_plain(model, McemConfig(var_rw=0.0, fast_decoder=fast, fast_stats=False), wavs,
                         (x2b, z0b, maskb), frames, plain_chain, "bf16" if fast else "f32", 3)
         sync()
 
@@ -4227,6 +4558,8 @@ def main() -> int:
                     model, wavs, cuda_ms, tag, work, tree, kept["vad_npz"],
                     {"batch": (x2b, z0b, maskb), "k_ms": k_ms, "p_ms": p_ms, "b_ms": b_ms,
                      "b_by": b_by, "max_abs": max_abs[True]})
+    fast_stats_entries = fast_stats_phase(model, wavs, (x2b, z0b, maskb), frames, cuda_ms,
+                                          plain_chain, agree, tag)
     peem_profile(enh.mats, (x2b, z0b, maskb), cfg.mcem, tag)
 
     def m1_chain_entry(name, fast, n):
@@ -4241,7 +4574,7 @@ def main() -> int:
                                 *stft_entries, *cond_entries, *engine_entries,
                                 *serving_entries, *labelled_entries, *cli_entries,
                                 *audio_entries, *video_entries, *scoring_entries,
-                                *depth_entries, *parallel_entries]}))
+                                *depth_entries, *parallel_entries, *fast_stats_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -58,9 +58,17 @@ class McemConfig:
     tensor-core body); False keeps them f32. It holds for decoders of two
     hidden layers only: at any other depth the engines run in f32 whatever
     it says, as the JAX package does (it swaps in its bf16 decoder only
-    where ``extract_decoder_mlp`` found two hidden layers). The sample
-    planes stay f32 either way: ``fast_stats`` is carried so a config means
-    the same in both packages, and is ignored here.
+    where ``extract_decoder_mlp`` found two hidden layers).
+
+    ``fast_stats`` (default True) keeps the chain's planes in bf16, as the
+    JAX package's scan engine does, with all arithmetic in f32: the chain's
+    energy reads |X|^2 rounded to bf16 once per run and Vb rounded once per
+    EM iteration; the E-step emits its Vs samples as bf16; the M-step reads
+    them and stores its R-sums at their dtype; the cost is taken on them.
+    The Wiener masks sum over the f32 Vb and the chain's f32 Vs, so WFs +
+    WFn = 1 stays exact. It acts on run_mcem, run_pmcem and run_peem_wf's
+    Wiener tail; run_peem and run_em_fixed_z run no chain and ignore it, as
+    in JAX. False is all f32.
 
     ``peem_steps`` / ``peem_lr``: Adam steps on the latent per EM iteration
     and their learning rate (run_peem, run_peem_wf). ``pmcem_chains`` /
@@ -147,23 +155,32 @@ def _prep_em(mats, x2, mask, cfg: McemConfig, y, seed: int, nmf_init):
     return x2, mask, nmf_init, mats, (g_em, g_wf), cfg
 
 
+def _stats(t: torch.Tensor, cfg: McemConfig) -> torch.Tensor:
+    """``t`` as the chain stores its planes: rounded to bf16 under
+    ``cfg.fast_stats``, else as it is (f32)."""
+    return t.to(torch.bfloat16) if cfg.fast_stats else t
+
+
 def _segment(mats, x2_r, vb, g, z, gen, n_burn: int, n_samples: int, cfg: McemConfig,
              wf_mode: bool):
     """One chain segment over the rows of the (rows, F) plane ``x2_r``;
     ``vb``, ``g`` and ``z`` are flattened to those rows, and the segment's
-    noise is drawn from ``gen``."""
+    noise is drawn from ``gen``. The planes come at the chain's dtypes
+    (``mh_chain.plane_dtypes``): ``x2_r`` and an E-step's ``vb`` through
+    :func:`_stats`, a WF segment's ``vb`` in f32."""
     rows, f = x2_r.shape
     l = z.shape[-1]
     noise = make_chain_noise(n_burn + n_samples, rows, l, gen, x2_r.device)
     return run_mh_chain(
         mats, x2_r, vb.reshape(rows, f).contiguous(), g.reshape(rows).contiguous(),
         z.reshape(rows, l).contiguous(), None, noise, n_burn, n_samples, cfg.var_rw,
-        wf_mode=wf_mode, fast_decoder=cfg.fast_decoder)
+        wf_mode=wf_mode, fast_decoder=cfg.fast_decoder, fast_stats=cfg.fast_stats)
 
 
 def _masked_cost(x2, vs, vb, g, mask):
     """E[-log lik] over the valid cells: the mean over the samples ``vs``
-    (R, B, N, F), summed over valid frames and bins, over their count."""
+    (R, B, N, F; f32, or bf16 under ``fast_stats``, read in f32), summed
+    over valid frames and bins, over their count."""
     vx = (g[None, :, :, None] * vs + vb[None]).clamp_min(VX_FLOOR)
     per = torch.log(vx) + x2[None] / vx
     return (per.mean(0) * mask[:, :, None]).sum() / torch.clamp(mask.sum() * x2.shape[-1],
@@ -174,14 +191,15 @@ def _stack(costs, like):
     return torch.stack(costs) if costs else like.new_zeros((0,))
 
 
-def _wf_expectation(mats, x2, mask, z, w, h, g, gen, cfg: McemConfig):
+def _wf_expectation(mats, x2_r, mask, z, w, h, g, gen, cfg: McemConfig):
     """The Monte-Carlo Wiener masks (run_mcem's tail, shared with
-    run_peem_wf): one WF-mode segment from ``z``, ``burnin_wf`` steps, then
-    the masks summed over ``nsamples_wf`` draws, averaged and masked. The
-    same f32 Vb is in numerator and denominator, so WFs + WFn = 1 on valid
-    frames. Returns ``(wfs, wfn, z)``."""
-    b, n, f = x2.shape
-    zf, wfs, wfn = _segment(mats, x2.reshape(b * n, f), compute_vb(w, h), g, z, gen,
+    run_peem_wf): one WF-mode segment from ``z`` on the (B*N, F) plane
+    ``x2_r`` (at the chain's dtype), ``burnin_wf`` steps, then the masks
+    summed over ``nsamples_wf`` draws, averaged and masked. The same f32 Vb
+    is in numerator and denominator, so WFs + WFn = 1 on valid frames.
+    Returns ``(wfs, wfn, z)``."""
+    (b, n), f = mask.shape, x2_r.shape[-1]
+    zf, wfs, wfn = _segment(mats, x2_r, compute_vb(w, h), g, z, gen,
                             cfg.burnin_wf, cfg.nsamples_wf, cfg, True)
     m3 = mask[:, :, None]
     return (wfs.reshape(b, n, f) / cfg.nsamples_wf * m3,
@@ -207,17 +225,17 @@ def run_mcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
     x2, mask, (w, h, g), mats, (g_em, g_wf), cfg = _prep_em(mats, x2, mask, cfg, y, seed,
                                                              nmf_init)
     b, n, f = x2.shape
-    x2_r = x2.reshape(b * n, f)
+    x2_r = _stats(x2.reshape(b * n, f), cfg)  # the chain's plane, rounded once per run
     z = z_init.to(torch.float32)
     costs = []
     for _ in range(cfg.niter):
-        zf, vs = _segment(mats, x2_r, compute_vb(w, h), g, z, g_em, cfg.burnin_e_step,
-                          cfg.nsamples_e_step, cfg, False)
+        zf, vs = _segment(mats, x2_r, _stats(compute_vb(w, h), cfg), g, z, g_em,
+                          cfg.burnin_e_step, cfg.nsamples_e_step, cfg, False)
         z = zf.reshape(b, n, -1)
         vs = vs.reshape(cfg.nsamples_e_step, b, n, f)
         w, h, g, vb = nmf_m_step(x2, vs, w, h, g, mask, cfg.eps)
         costs.append(_masked_cost(x2, vs, vb, g, mask))
-    wfs, wfn, z = _wf_expectation(mats, x2, mask, z, w, h, g, g_wf, cfg)
+    wfs, wfn, z = _wf_expectation(mats, x2_r, mask, z, w, h, g, g_wf, cfg)
     return McemResult(wfs, wfn, _stack(costs, x2), z, w, h, g)
 
 
@@ -241,18 +259,20 @@ def run_pmcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
     The chain kernel reads x2, Vb, g and a row bias per row, so each chain
     gets its own copy of them: x2 once per run, Vb and g once per EM
     iteration, the folded labels' row bias once per run (folded once, then
-    repeated).
+    repeated). Under ``fast_stats`` x2 and the E-step's Vb are rounded
+    before they are repeated, so the R copies are bf16.
     """
     x2, mask, (w, h, g), mats, (g_em, g_wf), cfg = _prep_em(mats, x2, mask, cfg, y, seed,
                                                              nmf_init)
     b, n, f = x2.shape
     r, bn, l = cfg.pmcem_chains, b * n, z_init.shape[-1]
-    x2_r = x2.reshape(bn, f).repeat(r, 1)
+    x2_r = _stats(x2.reshape(bn, f), cfg).repeat(r, 1)
     if mats.b1.dim() == 2:  # the labels' row bias (B*N, H1)
         mats = mats._replace(b1=mats.b1.repeat(r, 1))
 
-    def planes(w, h, g):
-        return compute_vb(w, h).reshape(bn, f).repeat(r, 1), g.reshape(bn).repeat(r)
+    def planes(w, h, g, wf_mode=False):
+        vb = compute_vb(w, h).reshape(bn, f)
+        return (vb if wf_mode else _stats(vb, cfg)).repeat(r, 1), g.reshape(bn).repeat(r)
 
     eps = torch.randn((r, b, n, l), generator=g_em, device=x2.device)
     eps[0] = 0.0
@@ -266,7 +286,7 @@ def run_pmcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
         costs.append(_masked_cost(x2, vs, vb, g, mask))
 
     n_collect = -(-cfg.nsamples_wf // r)
-    z, wfs, wfn = _segment(mats, x2_r, *planes(w, h, g), z, g_wf, cfg.pmcem_wf_burn,
+    z, wfs, wfn = _segment(mats, x2_r, *planes(w, h, g, True), z, g_wf, cfg.pmcem_wf_burn,
                            n_collect, cfg, True)
     n_avg, m3 = n_collect * r, mask[:, :, None]
     return McemResult(wfs.reshape(r, b, n, f).sum(0) / n_avg * m3,
@@ -359,5 +379,7 @@ def run_peem_wf(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor
     of this seed; stochastic through the WF segment only."""
     x2, mask, nmf_init, mats, (_, g_wf), cfg = _prep_em(mats, x2, mask, cfg, y, seed, nmf_init)
     res = run_peem(mats, x2, z_init, mask, seed, cfg, None, nmf_init)
-    wfs, wfn, z = _wf_expectation(mats, x2, mask, res.z, res.w, res.h, res.g, g_wf, cfg)
+    b, n, f = x2.shape
+    wfs, wfn, z = _wf_expectation(mats, _stats(x2.reshape(b * n, f), cfg), mask, res.z,
+                                  res.w, res.h, res.g, g_wf, cfg)
     return McemResult(wfs, wfn, res.cost, z, res.w, res.h, res.g)

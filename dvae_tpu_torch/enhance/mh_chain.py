@@ -13,6 +13,15 @@ Per step: ``z' = z + sqrt(var_rw) eps``; ``Vs' = dec(z')``;
 E-step mode returns the accepted Vs of every post-burn-in step; WF mode the
 sums of ``g Vs / Vx`` and ``Vb / Vx`` over those steps.
 
+``fast_stats`` (``McemConfig.fast_stats``) keeps the planes the chain reads
+and writes in HBM as bf16, as the JAX package's scan engine does; the
+arithmetic stays f32. The caller rounds the planes once and passes them at
+their storage dtype, and both paths take the same planes: ``x2`` bf16,
+``vb`` bf16 in E-step mode and f32 in WF mode, where the mask sums need
+the f32 Vb (so ``WFs + WFn = 1`` stays exact) and the energy rounds it to
+bf16 itself. E-step mode then emits ``bf16(Vs)`` of the accepted state;
+the chain's own Vs stays f32.
+
 The chain's randomness is an input, ``noise`` of shape
 ``(n_steps, rows, L + 1)``: L standard normals, then one ``log u`` with
 ``u ~ U[1e-38, 1)``. :func:`make_chain_noise` draws it for the main path.
@@ -177,7 +186,15 @@ def fold_conditioning(mats, y, fast_decoder: bool = False):
     return mats._replace(w1y=None, b1=_fold_bias(mats, y, y.shape[0], fast_decoder))
 
 
-def _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder):
+def plane_dtypes(fast_stats: bool, wf_mode: bool) -> tuple:
+    """The dtypes of the ``x2`` and ``vb`` planes a chain segment takes
+    (see the module docstring)."""
+    half = torch.bfloat16 if fast_stats else torch.float32
+    return half, torch.float32 if wf_mode else half
+
+
+def _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder, fast_stats=False,
+           wf_mode=False):
     rows, f = x2.shape
     l = z.shape[-1]
     widths = mats.widths
@@ -198,11 +215,14 @@ def _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder):
         want[f"hidden[{i}].w"] = (w, (widths[i], widths[i + 1]))
         want[f"hidden[{i}].b"] = (b, (widths[i + 1],))
     dev = x2.device
+    dtypes = dict(zip(("x2", "vb"), plane_dtypes(fast_stats, wf_mode)))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        dtype = dtypes.get(name, torch.float32)
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {str(dtype).removeprefix('torch.')} at "
+                            f"fast_stats={fast_stats}, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x2 on {dev}")
         if not t.is_contiguous():
@@ -235,26 +255,41 @@ def decoder_reference(mats, by, fast_decoder: bool = False):
     return dec
 
 
+def energy_planes(x2, vb, fast_stats: bool = False):
+    """The f32 values of the planes ``x2``, ``vb`` that the chain's energy
+    reads: as given, except that under ``fast_stats`` Vb is rounded to bf16
+    (an f32 WF-mode plane; a bf16 one is already rounded)."""
+    return x2.float(), (_bf16(vb) if fast_stats else vb)
+
+
+def chain_energy(z, vs, x2e, vbe, g):
+    """Per row, ``sum_f [log Vx + x2/Vx] + ||z||^2/2`` with
+    ``Vx = max(g Vs + Vb, VX_FLOOR)``, on the planes of :func:`energy_planes`."""
+    vx = (g[:, None] * vs + vbe).clamp_min(VX_FLOOR)
+    return (torch.log(vx) + x2e / vx).sum(-1) + 0.5 * (z * z).sum(-1)
+
+
 def mh_chain_reference(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int,
-                       var_rw: float, wf_mode: bool = False, fast_decoder: bool = False):
+                       var_rw: float, wf_mode: bool = False, fast_decoder: bool = False,
+                       fast_stats: bool = False):
     """Plain PyTorch chain: the same contract as :func:`run_mh_chain`,
     written as a step loop on tensors (any device)."""
-    _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder)
+    _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder, fast_stats, wf_mode)
     dec = decoder_reference(mats, _fold_bias(mats, y, x2.shape[0], fast_decoder),
                             fast_decoder)
     l = z.shape[-1]
     sqrt_var = math.sqrt(var_rw)
     gg = g[:, None]
+    x2e, vbe = energy_planes(x2, vb, fast_stats)
 
     def energy(z, vs):
-        vx = (gg * vs + vb).clamp_min(VX_FLOOR)
-        return (torch.log(vx) + x2 / vx).sum(-1) + 0.5 * (z * z).sum(-1)
+        return chain_energy(z, vs, x2e, vbe, g)
 
     vs = dec(z)
     e = energy(z, vs)
     samples = []
-    wfs = torch.zeros_like(x2)
-    wfn = torch.zeros_like(x2)
+    wfs = torch.zeros_like(x2e)
+    wfn = torch.zeros_like(x2e)
     for k in range(n_burn + n_samples):
         eps, log_u = noise[k, :, :l], noise[k, :, l]
         zp = z + sqrt_var * eps
@@ -271,7 +306,7 @@ def mh_chain_reference(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int
                 wfs = wfs + vsc / vx
                 wfn = wfn + vb / vx
             else:
-                samples.append(vs)
+                samples.append(vs.to(torch.bfloat16) if fast_stats else vs)
     if wf_mode:
         return z, wfs, wfn
     return z, torch.stack(samples)
@@ -285,7 +320,7 @@ def build_library() -> ctypes.CDLL:
     lib = load_library("mh_chain.cu")
     p, i, pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
     for launch in (lib.mh_chain_launch, lib.mh_chain_mma_launch):
-        launch.argtypes = ([p] * 6 + [pp, pp, ctypes.POINTER(i), i, p, p] + [p] * 4 + [i] * 8
+        launch.argtypes = ([p] * 6 + [pp, pp, ctypes.POINTER(i), i, p, p] + [p] * 4 + [i] * 9
                            + [ctypes.c_float, p])
         launch.restype = i
     lib.mh_chain_smem_bytes.argtypes = [i, i, ctypes.POINTER(i), i, i, i, i]
@@ -409,7 +444,7 @@ def _packed(mats, fast_decoder):
 
 
 def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
-            fast_decoder):
+            fast_decoder, fast_stats):
     global launches, launches_mma
     rows, f = x2.shape
     l = z.shape[-1]
@@ -433,7 +468,8 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
                 torch.empty((rows, f), device=x2.device))
         samples_p, wfs_p, wfn_p = None, outs[0].data_ptr(), outs[1].data_ptr()
     else:
-        outs = (torch.empty((n_samples, rows, f), device=x2.device),)
+        outs = (torch.empty((n_samples, rows, f), device=x2.device,
+                            dtype=torch.bfloat16 if fast_stats else torch.float32),)
         samples_p, wfs_p, wfn_p = outs[0].data_ptr(), None, None
     by_stride = by.shape[1] if by.dim() == 2 else 0
     with torch.cuda.device(x2.device):
@@ -441,7 +477,7 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
             x2.data_ptr(), vb.data_ptr(), g.data_ptr(), z.data_ptr(), by.data_ptr(),
             noise.data_ptr(), ws, bs, _ints(widths), len(widths), w_out.data_ptr(),
             b_out.data_ptr(), z_out.data_ptr(), samples_p, wfs_p, wfn_p, rows, f, l,
-            n_burn + n_samples, n_burn, by_stride, int(wf_mode), int(lean),
+            n_burn + n_samples, n_burn, by_stride, int(wf_mode), int(lean), int(fast_stats),
             math.sqrt(var_rw), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"mh_chain kernel launch failed: cudaError {err}")
@@ -451,28 +487,32 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
 
 
 def run_mh_chain(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int,
-                 var_rw: float, wf_mode: bool = False, fast_decoder: bool = False):
+                 var_rw: float, wf_mode: bool = False, fast_decoder: bool = False,
+                 fast_stats: bool = False):
     """Run one MH chain segment on a flattened (rows, F) frame batch.
 
     Args:
         mats: decoder weights from :func:`extract_decoder_mlp`.
-        x2, vb: (rows, F) mixture power / NMF noise variance.
+        x2, vb: (rows, F) mixture power / NMF noise variance, at the
+            dtypes of :func:`plane_dtypes` (float32 unless ``fast_stats``).
         g: (rows,) gains; z: (rows, L) current latents.
         y: optional (rows, Y) conditioning labels, folded into the first
             layer's bias.
         noise: (n_burn + n_samples, rows, L + 1), see :func:`make_chain_noise`.
         fast_decoder: bf16 products with f32 sums (the tensor-core body,
             two hidden layers only) if True, f32 products if False.
+        fast_stats: the energy on the bf16 planes, bf16 emission.
     Returns:
-        E-step mode: ``(z_final (rows, L), vs_samples (n_samples, rows, F))``.
+        E-step mode: ``(z_final (rows, L), vs_samples (n_samples, rows, F))``,
+        the samples bfloat16 under ``fast_stats``.
         WF mode: ``(z_final, wfs_sum (rows, F), wfn_sum (rows, F))``.
     """
-    _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder)
+    _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder, fast_stats, wf_mode)
     if x2.device.type == "cpu":
         return mh_chain_reference(mats, x2, vb, g, z, y, noise, n_burn, n_samples,
-                                  var_rw, wf_mode, fast_decoder)
+                                  var_rw, wf_mode, fast_decoder, fast_stats)
     if x2.device.type != "cuda":
         raise ValueError(f"unsupported device {x2.device}")
     by = _fold_bias(mats, y, x2.shape[0], fast_decoder)
     return _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
-                   fast_decoder)
+                   fast_decoder, fast_stats)

@@ -36,32 +36,40 @@ def nmf_m_step(x2, vs, w, h, g, mask, eps: float = 1e-8):
     """One multiplicative M-step given latent-sample speech variances.
 
     Args:
-        x2: (B, N, F) mixture power; vs: (R, B, N, F) speech variances.
+        x2: (B, N, F) mixture power; vs: (R, B, N, F) speech variances,
+            float32, or bfloat16 when the engine runs ``fast_stats``.
         w, h, g: current NMF parameters and gains; mask: (B, N) float.
     Returns:
         updated ``(w, h, g, vb)``, with ``vb = W @ H`` the final noise
         variance (g does not enter it).
+
+    The arithmetic is f32 whatever ``vs``'s dtype: each expression that
+    reads ``vs`` promotes it element by element, so no f32 copy of the
+    samples is made. The R-sums ``a1``, ``a2`` are rounded to ``vs``'s
+    dtype, as the JAX package stores them.
     """
     m = mask[:, :, None]
-    vs = vs.to(torch.float32)
+    ad = vs.dtype
 
     def vx(vb):
         return (g[None, :, :, None] * vs + vb[None]).clamp_min(VX_FLOOR)
 
+    def r_sums(r1):
+        """The paired reductions over R, at ``vs``'s dtype."""
+        return r1.sum(0).to(ad), (r1 * r1).sum(0).to(ad)
+
     vb = compute_vb(w, h)
-    r1 = 1.0 / vx(vb)
     # W: reduces over frames, so masked
-    a1, a2 = r1.sum(0), (r1 * r1).sum(0)  # the paired reductions over R
+    a1, a2 = r_sums(1.0 / vx(vb))
     num = torch.einsum("bnf,bnk->bfk", x2 * a2 * m, h)
     den = torch.einsum("bnf,bnk->bfk", a1 * m, h)
     w = w * torch.sqrt(num / den.clamp_min(eps))
 
     vb = compute_vb(w, h)
-    r1 = 1.0 / vx(vb)
     # H: per frame, padded rows are harmless
-    a1, a2 = r1.sum(0), (r1 * r1).sum(0)
+    a1, a2 = r_sums(1.0 / vx(vb))
     num = torch.einsum("bnf,bfk->bnk", x2 * a2, w)
-    den = torch.einsum("bnf,bfk->bnk", a1, w)
+    den = torch.einsum("bnf,bfk->bnk", a1.float(), w)
     h = h * torch.sqrt(num / den.clamp_min(eps))
 
     # renormalize W's columns into H (W @ H unchanged); the norm is floored

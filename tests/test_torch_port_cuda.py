@@ -18,7 +18,11 @@ other way and move its row's Vs by up to ~1e-3 relative; so Vs agrees to
 5e-3 relative everywhere and to 1e-5 on at least 99% of the elements, in
 a frozen chain and on the rows of a live chain that end at the same z
 (again at least 99%); ``run_mcem``'s outputs, smooth functions of Vs,
-agree to rtol 5e-3. The STFT power kernel takes an FFT where the
+agree to rtol 5e-3. At ``fast_stats=True`` both sides emit bf16 samples,
+each rounding its own f32 Vs, so an element whose two values straddle a
+bf16 boundary differs by one bf16 ulp (``_close_emitted``); the tests
+that hold the kernel to the f32 limits above pass ``fast_stats=False``.
+The STFT power kernel takes an FFT where the
 plain version takes matmuls, so the two round differently: power agrees to
 rtol 1e-4 above a floor of 1e-6 of the batch's peak power, log power to
 1e-3 absolute on the bins above that floor; a silent row gives exactly 0,
@@ -141,7 +145,7 @@ def test_cuda_run_mcem_frozen_matches_plain(cuda, monkeypatch, fast):
     mask = torch.ones((b, n), device=cuda)
     mask[1, 40:] = 0.0
     cfg = McemConfig(niter=5, nsamples_e_step=3, burnin_e_step=2, nsamples_wf=4,
-                     burnin_wf=2, var_rw=0.0, fast_decoder=fast)
+                     burnin_wf=2, var_rw=0.0, fast_decoder=fast, fast_stats=False)
     before = mh_chain.launches
     rk = run_mcem(mats, x2, z0, mask, 7, cfg)
     assert mh_chain.launches == before + cfg.niter + 1
@@ -216,7 +220,7 @@ def test_cuda_conditioned_enhancer_frozen_matches_plain(cuda, monkeypatch, fast,
         ys = [(rng.uniform(size=(n_stft_frames_clamped(len(w), StftConfig()), 513)) > 0.5)
               .astype(np.float32) for w in ws]
     frozen = McemConfig(niter=3, nsamples_e_step=2, burnin_e_step=2, nsamples_wf=2,
-                        burnin_wf=2, var_rw=0.0, fast_decoder=fast)
+                        burnin_wf=2, var_rw=0.0, fast_decoder=fast, fast_stats=False)
     enh = Enhancer(model, EnhancerConfig(mcem=frozen, y_mode=y_mode, wire_dtype="float32"))
     before = mh_chain.launches
     out_k = enh.enhance_batch(ws, ys, seed=1)
@@ -237,14 +241,14 @@ ENGINE_LAUNCHES = {"run_pmcem": lambda cfg: cfg.niter + 1, "run_peem_wf": lambda
                    "run_peem": lambda cfg: 0, "run_em_fixed_z": lambda cfg: 0}
 
 
-def _engine_problem(cuda, fast, seed=6):
+def _engine_problem(cuda, fast, seed=6, fast_stats=False):
     b, n = 4, 64
     mats, x2, _, _, z0, _ = _problem(cuda, b * n, seed=seed)
     mask = torch.ones((b, n), device=cuda)
     mask[1, 40:] = 0.0
     cfg = McemConfig(niter=4, nsamples_e_step=3, burnin_e_step=2, nsamples_wf=4,
                      burnin_wf=2, var_rw=0.0, fast_decoder=fast, pmcem_chains=3,
-                     pmcem_steps=3, pmcem_wf_burn=2, peem_steps=2)
+                     pmcem_steps=3, pmcem_wf_burn=2, peem_steps=2, fast_stats=fast_stats)
     return mats, x2.reshape(b, n, F), z0.reshape(b, n, L), mask, cfg
 
 
@@ -274,6 +278,98 @@ def test_cuda_frozen_engine_matches_plain(cuda, monkeypatch, fast, engine):
     assert float(part.max()) < 1e-5
 
 
+def _close_emitted(a, b, fast):
+    """bf16 samples (fast_stats) of the kernel against the plain chain's:
+    each side rounds its f32 Vs, so an element whose two values straddle a
+    bf16 boundary differs by one bf16 ulp (at most 2^-7 relative). f32
+    body: at most 1e-3 of the elements differ, by at most that; bf16 body:
+    its own 5e-3 on top, on at most 1.1e-2 of the elements (its 1% share
+    and the flips)."""
+    assert a.dtype == b.dtype == torch.bfloat16
+    a, b = a.float(), b.float()
+    rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    differ = float((a != b).float().mean())
+    if fast:
+        assert rel < 5e-3 + 2.0 ** -7 and differ <= 1.1e-2
+    else:
+        assert rel <= 2.0 ** -7 and differ <= 1e-3
+
+
+@pytest.mark.cuda
+@PRECISIONS
+@pytest.mark.parametrize("var_rw", [0.0, 0.01], ids=["frozen", "live"])
+@pytest.mark.parametrize("wf_mode", [False, True], ids=["estep", "wf"])
+def test_cuda_fast_stats_chain_matches_plain(cuda, wf_mode, var_rw, fast):
+    """fast_stats: the kernel reads bf16 x2 (and Vb in E-step mode, f32 in
+    WF mode, rounded at the energy) and emits bf16 samples, against the
+    plain chain on the same planes: rows that end at the same z (all of a
+    frozen chain's, >= 99% of a live one's) emit by :func:`_close_emitted`
+    and sum their Wiener masks to rtol 1e-4 (f32) or by the bf16 rule;
+    WFs + WFn = n_samples to rtol 1e-5."""
+    rows = 4096
+    mats, x2, vb, g, z0, gen = _problem(cuda, rows, seed=10)
+    x2h, vbh = x2.to(torch.bfloat16), vb if wf_mode else vb.to(torch.bfloat16)
+    noise = make_chain_noise(8, rows, L, gen, cuda)
+    args = (mats, x2h, vbh, g, z0, None, noise, 4, 4, var_rw, wf_mode, fast)
+    before = mh_chain.launches
+    zk, *ok = run_mh_chain(*args, fast_stats=True)
+    torch.cuda.synchronize()
+    assert mh_chain.launches == before + 1
+    zr, *orf = mh_chain_reference(*args, fast_stats=True)
+    same = (zk - zr).abs().amax(-1) < 1e-4
+    assert same.float().mean() > (0.999 if var_rw == 0.0 else 0.99)
+    if var_rw:
+        assert (zk != z0).any(-1).float().mean() > 0.5
+    if wf_mode:
+        for a, b in zip(ok, orf):
+            _close(a[same], b[same], fast, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(ok[0] + ok[1], torch.full_like(ok[0], 4.0), rtol=1e-5,
+                                   atol=0)
+    else:
+        _close_emitted(ok[0][:, same], orf[0][:, same], fast)
+
+
+@pytest.mark.cuda
+def test_cuda_fast_stats_lean_layout_matches_plain(cuda):
+    """The bf16 body at (256, 256) in WF mode runs the lean layout (WF sums in
+    global memory), fast_stats on: frozen, against the plain chain."""
+    mats, x2, vb, g, z0, gen = _problem(cuda, 1000, (256, 256), seed=11)
+    assert mh_chain.lean_layout(mats, F, L, True, True)
+    noise = make_chain_noise(5, 1000, L, gen, cuda)
+    args = (mats, x2.to(torch.bfloat16), vb, g, z0, None, noise, 2, 3, 0.0, True, True)
+    zk, *ok = run_mh_chain(*args, fast_stats=True)
+    zr, *orf = mh_chain_reference(*args, fast_stats=True)
+    assert torch.equal(zk, z0)
+    for a, b in zip(ok, orf):
+        _close(a, b, True)
+
+
+@pytest.mark.cuda
+@PRECISIONS
+@pytest.mark.parametrize("engine", ["run_mcem", "run_pmcem", "run_peem_wf"])
+def test_cuda_fast_stats_frozen_engine_matches_plain(cuda, monkeypatch, fast, engine):
+    """The default fast_stats=True: a frozen engine through the kernel and
+    through the plain chain on the card, each with niter + 1 (peem-wf 1)
+    launches, outputs at rtol 1e-3 (f32 body: one-ulp flips of the bf16
+    samples and R-sums move W by ~5e-4 over the EM iterations) or 5e-3
+    (bf16 body), and the Wiener partition."""
+    from dvae_tpu_torch.enhance import mcem
+
+    mats, x2, z0, mask, cfg = _engine_problem(cuda, fast, seed=12, fast_stats=True)
+    want = 1 if engine == "run_peem_wf" else cfg.niter + 1
+    before = mh_chain.launches
+    rk = getattr(mcem, engine)(mats, x2, z0, mask, 7, cfg)
+    torch.cuda.synchronize()
+    assert mh_chain.launches == before + want
+    monkeypatch.setattr(mcem, "run_mh_chain", mh_chain_reference)
+    rp = getattr(mcem, engine)(mats, x2, z0, mask, 7, cfg)
+    assert mh_chain.launches == before + want
+    for a, b_ in zip(rk, rp):
+        torch.testing.assert_close(a, b_, rtol=5e-3 if fast else 1e-3, atol=1e-5)
+    part = (rk.wfs + rk.wfn - 1.0).abs() * mask[:, :, None]
+    assert float(part.max()) < 1e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine", list(ENGINE_LAUNCHES))
 def test_cuda_engines_never_take_the_plain_chain(cuda, monkeypatch, engine):
@@ -286,7 +382,7 @@ def test_cuda_engines_never_take_the_plain_chain(cuda, monkeypatch, engine):
         raise AssertionError("the plain chain ran on CUDA tensors")
 
     monkeypatch.setattr(mh_chain, "mh_chain_reference", plain)
-    mats, x2, z0, mask, cfg = _engine_problem(cuda, True, seed=9)
+    mats, x2, z0, mask, cfg = _engine_problem(cuda, True, seed=9, fast_stats=True)
     cfg = dataclasses.replace(cfg, var_rw=0.01)
     before = mh_chain.launches
     res = getattr(mcem, engine)(mats, x2, z0, mask, 3, cfg)

@@ -254,7 +254,8 @@ def test_engines_match_jax_at_any_depth(engine, depth, cond):
     before = mh_chain.launches
     runs = [getattr(tmcem, engine)(
         mats, torch.from_numpy(p["x2"]), torch.from_numpy(p["z0"]),
-        torch.from_numpy(p["mask"]), 3, tmcem.McemConfig(**kw, fast_decoder=fast), y,
+        torch.from_numpy(p["mask"]), 3,
+        tmcem.McemConfig(**kw, fast_stats=False, fast_decoder=fast), y,
         tuple(map(torch.from_numpy, p["nmf"]))) for fast in (True, False)]
     assert mh_chain.launches == before
     for name, a, b, c in zip(NAMES, jr, *runs, strict=True):
@@ -299,7 +300,8 @@ def test_frozen_enhancer_at_depth_3_matches_jax(monkeypatch):
     jcfg = JaxEnhancerConfig(mcem=jmcem.McemConfig(**budget, fast_stats=False),
                              wire_dtype="float32")
     jout = JaxEnhancer(jm, params, jcfg).enhance_batch(ws, key=jax.random.PRNGKey(0))
-    tcfg = EnhancerConfig(mcem=tmcem.McemConfig(**budget), wire_dtype="float32")
+    tcfg = EnhancerConfig(mcem=tmcem.McemConfig(**budget, fast_stats=False),
+                          wire_dtype="float32")
     assert tcfg.mcem.fast_decoder and jcfg.mcem.fast_decoder
     enh = Enhancer(tm, tcfg, device="cpu")
     assert enh.mats.widths == (8, 16, 32)

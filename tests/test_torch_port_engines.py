@@ -105,7 +105,8 @@ def run_port(p, engine, cfg_kw, seed, fast=False):
     y = None if p["y"] is None else torch.from_numpy(p["y"])
     res = getattr(tmcem, engine)(
         extract_decoder_mlp(p["tm"], L), torch.from_numpy(p["x2"]), torch.from_numpy(p["z0"]),
-        torch.from_numpy(p["mask"]), seed, tmcem.McemConfig(**cfg_kw, fast_decoder=fast), y,
+        torch.from_numpy(p["mask"]), seed,
+        tmcem.McemConfig(**cfg_kw, fast_stats=False, fast_decoder=fast), y,
         tuple(map(torch.from_numpy, p["nmf"])))
     return [a.detach().numpy() for a in res]
 

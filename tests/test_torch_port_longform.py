@@ -142,8 +142,9 @@ def test_enhance_chunked_real_enhancer_matches_jax(shared_nmf_init):
     jenh = JaxEnhancer(jm, params, JaxEnhancerConfig(
         mcem=JaxMcemConfig(**BUDGET, fast_stats=False, fast_decoder=False),
         wire_dtype="float32"))
-    tenh = Enhancer(tm, EnhancerConfig(mcem=McemConfig(**BUDGET, fast_decoder=False),
-                                       wire_dtype="float32"), device="cpu")
+    tenh = Enhancer(tm, EnhancerConfig(
+        mcem=McemConfig(**BUDGET, fast_stats=False, fast_decoder=False),
+        wire_dtype="float32"), device="cpu")
     x = _noisy(int(3.4 * FS), seed=5)
     kw = dict(chunk_seconds=1.0, overlap_seconds=0.25, max_concurrent_chunks=2)
     sj, nj = jlong.enhance_chunked(jenh, x, key=jax.random.PRNGKey(0), **kw)

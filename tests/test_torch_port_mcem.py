@@ -64,7 +64,8 @@ def _run_jax(problem, cfg_kw, seed):
 def _run_port(problem, cfg_kw, seed):
     _, _, tm, x2, z0, mask, nmf = problem
     res = run_mcem(extract_decoder_mlp(tm, L), torch.from_numpy(x2), torch.from_numpy(z0),
-                   torch.from_numpy(mask), seed, McemConfig(**cfg_kw, fast_decoder=False),
+                   torch.from_numpy(mask), seed,
+                   McemConfig(**cfg_kw, fast_stats=False, fast_decoder=False),
                    nmf_init=tuple(map(torch.from_numpy, nmf)))
     return [a.numpy() for a in res]
 

@@ -251,7 +251,8 @@ def test_enhancer_mesh_matches_jax_mesh(models, shared_nmf_init, n_wavs):
     ws = wavs()[:n_wavs]
     jcfg = JaxEnhancerConfig(mcem=JaxMcemConfig(**BUDGET, fast_stats=False, fast_decoder=False),
                              wire_dtype="float32")
-    tcfg = EnhancerConfig(mcem=McemConfig(**BUDGET, fast_decoder=False), wire_dtype="float32")
+    tcfg = EnhancerConfig(mcem=McemConfig(**BUDGET, fast_stats=False, fast_decoder=False),
+                          wire_dtype="float32")
     jout = JaxEnhancer(jm, params, jcfg, mesh=jax_make_mesh(4)).enhance_batch(
         ws, key=jax.random.PRNGKey(0))
     tout = Enhancer(tm, tcfg, mesh=make_mesh(4, device="cpu")).enhance_batch(ws, seed=0)

@@ -66,7 +66,8 @@ def test_conditioned_enhancer_matches_jax_frozen_chain(shared_nmf_init, case, wi
     jm, params, tm = _models(name, y_dim)
     jcfg = JaxEnhancerConfig(mcem=JaxMcemConfig(**BUDGET, fast_stats=False, fast_decoder=False),
                              wire_dtype=wire, y_mode=y_mode)
-    tcfg = EnhancerConfig(mcem=McemConfig(**BUDGET, fast_decoder=False), wire_dtype=wire,
+    tcfg = EnhancerConfig(mcem=McemConfig(**BUDGET, fast_stats=False, fast_decoder=False),
+                          wire_dtype=wire,
                           y_mode=y_mode)
     ws = wavs()
     ys = labels(ws, y_dim, kind)
@@ -100,7 +101,7 @@ def test_enc_dec_norm_matches_jax(shared_nmf_init):
             rng.uniform(0.5, 3.0, (513, 1)).astype(np.float32))
     jcfg = JaxEnhancerConfig(mcem=JaxMcemConfig(**BUDGET, fast_stats=False, fast_decoder=False),
                              wire_dtype="float32", y_mode="enc_dec", norm=norm)
-    tcfg = EnhancerConfig(mcem=McemConfig(**BUDGET, fast_decoder=False),
+    tcfg = EnhancerConfig(mcem=McemConfig(**BUDGET, fast_stats=False, fast_decoder=False),
                           wire_dtype="float32", y_mode="enc_dec", norm=norm)
     ws = wavs(4)
     ys = labels(ws, 1, "binary", seed=4)

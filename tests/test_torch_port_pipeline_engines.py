@@ -63,7 +63,8 @@ def test_engine_and_ablation_enhancer_matches_jax(shared_nmf_init, case):
     common = dict(wire_dtype="float32", y_mode=y_mode, engine=engine, ablation=ablation)
     jcfg = JaxEnhancerConfig(mcem=JaxMcemConfig(**KNOBS, fast_stats=False, fast_decoder=False),
                              **common)
-    tcfg = EnhancerConfig(mcem=McemConfig(**KNOBS, fast_decoder=False), **common)
+    tcfg = EnhancerConfig(mcem=McemConfig(**KNOBS, fast_stats=False, fast_decoder=False),
+                          **common)
     ws, cleans = wavs(), wavs(9)
     ys = None if y_mode == "none" else labels(ws, 1, "soft")
     jout = JaxEnhancer(jm, params, jcfg).enhance_batch(ws, ys, key=jax.random.PRNGKey(0),

@@ -294,8 +294,9 @@ def test_service_matches_jax_service_frozen_chain(shared_nmf_init, kind):
         enh_cfg=JaxEnhancerConfig(mcem=JaxMcemConfig(**FROZEN, fast_stats=False,
                                                      fast_decoder=False), wire_dtype="float32"),
         cfg=jserving.ServeConfig(warmup_buckets=(), batch_window_ms=5.0, **cfg))
-    tsvc = _service(tm, enh=EnhancerConfig(mcem=McemConfig(**FROZEN, fast_decoder=False),
-                                           wire_dtype="float32"), **cfg)
+    tsvc = _service(tm, enh=EnhancerConfig(
+        mcem=McemConfig(**FROZEN, fast_stats=False, fast_decoder=False),
+        wire_dtype="float32"), **cfg)
     try:
         x = _noisy(0.6 if kind == "short" else 2.6, seed=3)
         sj, nj = jsvc.submit(x, timeout=TIMEOUT)

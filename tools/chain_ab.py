@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Time B1, the MH-chain kernel, from two or more checkouts of the port on
+one card, in turns.
+
+    python3 tools/chain_ab.py <root> <root> [...] [--rounds 3]
+
+Each ``<root>`` is a directory that holds a ``dvae_tpu_torch`` package (a
+``git archive`` of another commit, or ``.``). Every round runs each root
+in a process of its own, the order reversed every other round (A B B A
+...), and each process builds its own kernel and times the bf16 body at
+the main path's shapes: E-step and WF segments (30 + 10 and 75 + 25
+steps) at 10,240 rows (F 513, L 16, H 128/128), with f32 planes and, where
+the package has ``fast_stats``, with its bf16 planes; CUDA events over 20
+warm calls of the wrapper. Prints one line per process and, last, one JSON
+object with each root's median per segment and the card's name and power
+limit. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROWS, F, L = 10240, 513, 16
+SEGMENTS = (("E-step", False, 30, 10), ("WF", True, 75, 25))
+
+
+def _time_root() -> dict:
+    """The times of this process's package (already first on sys.path)."""
+    import torch
+
+    from dvae_tpu_torch.enhance.mh_chain import (
+        extract_decoder_mlp,
+        make_chain_noise,
+        run_mh_chain,
+    )
+    from dvae_tpu_torch.models import VAE
+    from dvae_tpu_torch.models.blocks import init_xavier_
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = init_xavier_(VAE(F, L, (128, 128)), torch.Generator().manual_seed(0)).to(dev)
+    mats = extract_decoder_mlp(model, L)
+    x2 = torch.rand((ROWS, F), generator=gen, device=dev) + 0.05
+    vb = torch.rand((ROWS, F), generator=gen, device=dev) + 0.05
+    g = torch.rand((ROWS,), generator=gen, device=dev) + 0.5
+    z0 = 0.1 * torch.randn((ROWS, L), generator=gen, device=dev)
+
+    def cuda_ms(fn, reps=20, warm=3):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    has_stats = "fast_stats" in run_mh_chain.__code__.co_varnames
+    out = {}
+    for name, wf, n_burn, n_samp in SEGMENTS:
+        noise = make_chain_noise(n_burn + n_samp, ROWS, L, gen, dev)
+        args = (g, z0, None, noise, n_burn, n_samp, 0.01, wf, True)
+        out[f"{name} f32 planes"] = cuda_ms(lambda: run_mh_chain(mats, x2, vb, *args))
+        if has_stats:
+            x2h, vbh = x2.to(torch.bfloat16), vb if wf else vb.to(torch.bfloat16)
+            out[f"{name} bf16 planes"] = cuda_ms(
+                lambda: run_mh_chain(mats, x2h, vbh, *args, fast_stats=True))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="+")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        root = os.path.abspath(args.roots[0])
+        sys.path.insert(0, root)
+        print(json.dumps(_time_root()))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chain_ab: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    times = {root: [] for root in args.roots}
+    for rnd in range(args.rounds):
+        for root in (args.roots if rnd % 2 == 0 else args.roots[::-1]):
+            done = subprocess.run([sys.executable, os.path.abspath(__file__), root, "--child"],
+                                  capture_output=True, text=True, check=True)
+            got = json.loads(done.stdout.strip().splitlines()[-1])
+            times[root].append(got)
+            print(f"{root}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in got.items()), flush=True)
+    import statistics
+
+    medians = {root: {k: statistics.median(run[k] for run in runs) for k in runs[0]}
+               for root, runs in times.items()}
+    print(json.dumps({"card": card, "medians_ms": medians}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
