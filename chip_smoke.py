@@ -209,8 +209,8 @@ Phases, in order; any failure exits non-zero:
    segments, the f32 body at ``--h-dim`` 128, 128 128 128, 256 128 64,
    100 37 9 (odd widths) and 512 512 512 and the bf16 body at 256 256 and
    512 512 (the WF segments of the widest in the lean layout), a
-   conditioned row bias at depth 3, and ``Enhancer`` raising ValueError
-   naming ROADMAP A10b at depth 0, depth 9 and width 513; the M1
+   conditioned row bias at depth 3, and the ``Enhancer`` running depth 0,
+   depth 9 and width 513 on 4 utterances at niter 2; the M1
    ``Enhancer`` on the phase-3 batch at the full budget at each of those
    shapes (exactly niter + 1 launches of the f32 body at depths other than
    2, of the bf16 body at 256 256 and 512 512, the plain chain refusing to
@@ -255,9 +255,29 @@ Phases, in order; any failure exits non-zero:
    walls, peak device memory) and pmcem at fast_stats; then B1's segments
    at both settings and the NMF M-step on bf16 and f32 samples (CUDA
    events) beside their bounds by the bytes at the planes' dtypes, each
-   with the card's name and power limit.
+   with the card's name and power limit;
+20. every decoder the JAX models build (ROADMAP A10b), after phase 19:
+   B1 against its plain chain at the phase-3 batch's 10,240 rows, frozen
+   and live, E-step and WF, each shape with its layout, the f32 body at
+   ``--h-dim`` (none), 128 x 9, 64 x 16, 1024, 1024 1024 1024, 128 128,
+   640, 640 x 9 and 1024 + 64 x 8, an M2 ``dec_only`` decoder at y_dim 1 with
+   no hidden layer (its output row bias), the bf16 body at 128 128, 1024
+   1024 and 2048 2048, so that every layout (shared, lean, wide) x body x
+   mode runs, the f32 body's with its layers from its arguments (depth 1
+   to 8) and from the device table (any other depth); pmcem's E-step
+   segment at 102,400 rows at 2048 2048 (the wide layout's scratch the same
+   at 10,240 and 102,400 rows, peak device memory); the M1 ``Enhancer`` on
+   the phase-3 batch at the full budget at (none; std-normalized input),
+   128 x 9, 1024 and 1024 1024 (niter + 1 launches of the body the depth
+   selects, no plain chain, finite outputs) and the frozen config at niter
+   10 through the kernel and the plain chain with phase 3's limits; each
+   shape's E-step and WF segment times (CUDA events) beside their bounds,
+   each with the card's name and power limit; last, alone on the card,
+   ``evaluate_ntcd_m1 --h-dim 1024 1024`` as a process from a ``.pt`` of
+   seeded random weights on phase 10's sweep tree (niter + 1 bf16-body
+   launches per batch).
 
-The frozen-chain comparisons of phases 3, 9, 10, 11, 17 and 18 run at
+The frozen-chain comparisons of phases 3, 9, 10, 11, 17, 18 and 20 run at
 ``fast_stats=False``: their limits were set for f32 planes, and phase 19
 holds the bf16 planes. The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Weights are random from a seed; the repo
@@ -428,7 +448,7 @@ def log_err(got, p):
 
 
 def frozen_vs_plain(model, frozen, wavs, batch, frames, plain_chain, name: str,
-                    phase: int, mask_limit: float = 1e-3) -> None:
+                    phase: int, mask_limit: float = 1e-3, norm=None) -> None:
     """A frozen-chain McemConfig (``frozen``) through the kernel and through
     the plain chain, with phase 3's limits (the masks' at ``mask_limit``):
     ``run_mcem`` on ``batch`` (x2, z0, mask, as the main path sees the
@@ -436,14 +456,15 @@ def frozen_vs_plain(model, frozen, wavs, batch, frames, plain_chain, name: str,
     device-side noise estimate), whose waveforms are compared where the
     ISTFT's window normalizer is full (the first and last nfft samples of
     an utterance divide by a normalizer down to ~1e-10, as in the
-    reference)."""
+    reference). ``norm``: the ``EnhancerConfig`` input statistics."""
     import torch
 
     from dvae_tpu_torch.enhance.mcem import run_mcem
     from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
 
     x2b, z0b, maskb = batch
-    fcfg = EnhancerConfig(mcem=frozen, noise_from_partition=False, wire_dtype="float32")
+    fcfg = EnhancerConfig(mcem=frozen, noise_from_partition=False, wire_dtype="float32",
+                          norm=norm)
     enh_k = Enhancer(model, fcfg)
     with torch.inference_mode():
         rk = run_mcem(enh_k.mats, x2b, z0b, maskb, SEED, frozen)
@@ -3423,6 +3444,32 @@ def scoring_phase(kept: dict, said_f1: dict, cuda_ms, tag: str, work: str) -> li
     return [entry]
 
 
+@contextlib.contextmanager
+def no_plain_chain():
+    """The plain chain raises: CUDA tensors must take the kernel."""
+    from dvae_tpu_torch.enhance import mh_chain
+
+    real = mh_chain.mh_chain_reference
+
+    def plain(*args, **kw):
+        raise RuntimeError("the plain chain ran on CUDA tensors")
+
+    mh_chain.mh_chain_reference = plain
+    try:
+        yield
+    finally:
+        mh_chain.mh_chain_reference = real
+
+
+def power_norm(x2b, maskb) -> tuple:
+    """(mean, std) per bin of the batch's power over its valid frames, as
+    ``EnhancerConfig(norm=...)`` takes a std_norm model's train statistics.
+    A random decoder with no hidden layer needs it: its Vs is the exp of a
+    linear map of the encoder's mean, which overflows on raw power."""
+    valid = x2b[maskb > 0]
+    return valid.mean(0).cpu().numpy(), valid.std(0).cpu().numpy()
+
+
 # phase 17's decoders: the f32 body's depths and widths (as --h-dim takes
 # them; the decoder's hidden widths are their reverse) and the bf16 body's
 # two-layer widths past 128; the CLI chain's --h-dim
@@ -3445,8 +3492,8 @@ def depth_phase(wavs, cleans, batch, frames, cuda_ms, plain_chain, agree, tag: s
     from dvae_tpu_torch.enhance import mh_chain
     from dvae_tpu_torch.enhance.mcem import McemConfig
     from dvae_tpu_torch.enhance.mh_chain import (
+        chain_layout,
         extract_decoder_mlp,
-        lean_layout,
         make_chain_noise,
         mh_chain_reference,
         run_mh_chain,
@@ -3470,20 +3517,6 @@ def depth_phase(wavs, cleans, batch, frames, cuda_ms, plain_chain, agree, tag: s
 
     def body(fast):
         return "bf16" if fast else "f32"
-
-    @contextlib.contextmanager
-    def no_plain_chain():
-        """The plain chain raises: CUDA tensors must take the kernel."""
-        real = mh_chain.mh_chain_reference
-
-        def plain(*args, **kw):
-            raise RuntimeError("the plain chain ran on CUDA tensors")
-
-        mh_chain.mh_chain_reference = plain
-        try:
-            yield
-        finally:
-            mh_chain.mh_chain_reference = real
 
     models = os.path.join(work, "models")
     hdim = "_".join(f"{h:03d}" for h in DEPTH_CLI)
@@ -3530,7 +3563,7 @@ def depth_phase(wavs, cleans, batch, frames, cuda_ms, plain_chain, agree, tag: s
                 said += [agree(a[..., same, :], b_[..., same, :], fast, 1e-4,
                                f"live {h_dim} {body(fast)} WF={wf}", sum(h_dim))
                          for a, b_ in zip(ok, orf)]
-                layout = "lean" if lean_layout(mats, f, l, wf, fast) else "shared"
+                layout = chain_layout(mats, f, l, wf, fast)
                 log(f"phase 17: {body(fast)} body, --h-dim {' '.join(map(str, h_dim))} "
                     f"(decoder widths {mats.widths}), {'WF' if wf else 'E-step'} segments at "
                     f"{rows} rows, {layout} layout: frozen {'; '.join(said[:len(ok)])}; live "
@@ -3550,17 +3583,20 @@ def depth_phase(wavs, cleans, batch, frames, cuda_ms, plain_chain, agree, tag: s
                      for a, b_ in zip(ok, orf)]
         log(f"phase 17: f32 body, depth 3 with a conditioned row bias (rows, 128), frozen "
             f"E-step and WF segments: {'; '.join(said)}")
+        short = McemConfig(niter=2)
         for h_dim, what in (((), "depth 0"), ((128,) * 9, "depth 9"), ((513,), "width 513")):
-            before = mh_chain.launches
-            try:
-                Enhancer(VAE(f, l, h_dim), EnhancerConfig())
-            except ValueError as e:
-                check("ROADMAP A10b" in str(e), f"{what}: {e}")
-            else:
-                raise RuntimeError(f"chip_smoke check failed: {what} did not raise")
-            check(mh_chain.launches == before, f"{what}: a launch before the raise")
-        log("phase 17: Enhancer raises ValueError naming ROADMAP A10b at depth 0, depth 9 and "
-            "width 513, before any launch")
+            enh = Enhancer(model_of(h_dim), EnhancerConfig(
+                mcem=short, norm=power_norm(x2b, maskb) if not h_dim else None))
+            mh_chain.launches = 0
+            with no_plain_chain():
+                out = enh.enhance_batch(wavs[:4], seed=SEED)
+            sync()
+            check(mh_chain.launches == short.niter + 1, f"{what}: {mh_chain.launches} launches")
+            check(all(np.isfinite(s_).all() and np.isfinite(n_).all() for s_, n_ in out),
+                  f"{what}: finite outputs")
+        log(f"phase 17: the Enhancer runs depth 0 (std-normalized input), depth 9 and width 513 "
+            f"(phase 20 runs them at the full budget): niter + 1 = {short.niter + 1} launches "
+            f"each on 4 utterances, finite outputs, no plain chain")
 
         # ---- 17b. the M1 Enhancer at B = 32 and the full budget, each shape
         launches = {}
@@ -4004,8 +4040,8 @@ def fast_stats_phase(model, wavs, batch, frames, cuda_ms, plain_chain, agree, ta
     from dvae_tpu_torch.enhance import mh_chain
     from dvae_tpu_torch.enhance.mcem import McemConfig
     from dvae_tpu_torch.enhance.mh_chain import (
+        chain_layout,
         extract_decoder_mlp,
-        lean_layout,
         make_chain_noise,
         mh_chain_reference,
         run_mh_chain,
@@ -4096,7 +4132,7 @@ def fast_stats_phase(model, wavs, batch, frames, cuda_ms, plain_chain, agree, ta
     # ---- 19b. the lean layout: the bf16 body at 512 512 in WF mode
     wide = extract_decoder_mlp(
         init_xavier_(VAE(f, l, (512, 512)), torch.Generator().manual_seed(SEED)).to(dev), l)
-    check(lean_layout(wide, f, l, True, True), "512 512 WF runs the lean layout")
+    check(chain_layout(wide, f, l, True, True) == "lean", "512 512 WF runs the lean layout")
     for var_rw in (0.0, mc.var_rw):
         what = f"bf16 body 512 512 (lean layout), {'frozen' if var_rw == 0.0 else 'live'} WF"
         _, said = held(wide, x2_r, vb_r, g_r, z_r, True, True, var_rw, (6, 6), what, 1024)
@@ -4258,6 +4294,271 @@ def fast_stats_phase(model, wavs, batch, frames, cuda_ms, plain_chain, agree, ta
                   seg[True, True, True], max_abs[True, True]),
             entry("mh_chain (fast_stats, pmcem E-step)", estep(seen_pm),
                   (pk_ms, pp_ms, pb_ms, pb_by), pm_abs)]
+
+
+# phase 20's decoders (as --h-dim takes them; the decoder's hidden widths
+# are their reverse): the kernel against its plain chain in each body
+# (the f32 body's 128 128, 640, 640 x 9 and 1024 + 64 x 8, whose table
+# lists two widths, and the bf16 body's 128 128 complete the layouts x
+# modes x decoder routes of the others), the Enhancer end to end, the CLI
+ANY_F32 = ((), (128,) * 9, (64,) * 16, (1024,), (1024, 1024, 1024), (128, 128), (640,),
+           (640,) * 9, (1024,) + (64,) * 8)
+ANY_BF16 = ((128, 128), (1024, 1024), (2048, 2048))
+ANY_E2E = ((), (128,) * 9, (1024,), (1024, 1024))
+ANY_CLI = (1024, 1024)
+
+
+def decoder_route(widths: tuple, fast: bool) -> str:
+    """Where B1 reads a decoder's hidden layers: its kernel arguments carry
+    1 to 8 (MAX_HIDDEN in csrc/mh_chain.cu); the f32 body reads any other
+    depth, 0 too, from a table in device memory."""
+    return "arguments" if fast or 1 <= len(widths) <= 8 else "table"
+
+
+def any_decoder_phase(wavs, batch, frames, cuda_ms, plain_chain, agree, tag: str,
+                      work: str) -> list:
+    """Phase 20 on the card: B1 at decoders of no hidden layer, more than 8
+    hidden layers and widths past 512 (ROADMAP A10b), in the shared, lean
+    and wide layouts of both bodies and both of the f32 body's decoder
+    routes; the CLI alone on the card, after the times. ``batch`` is the
+    phase-3 batch as the engines see it (x2, mask) and ``frames`` its frame
+    counts. Returns the kernels-line entries of the end-to-end shapes."""
+    import torch
+
+    from dvae_tpu_torch.enhance import mh_chain
+    from dvae_tpu_torch.enhance.mcem import McemConfig
+    from dvae_tpu_torch.enhance.mh_chain import (
+        LAYOUTS,
+        chain_layout,
+        extract_decoder_mlp,
+        make_chain_noise,
+        mh_chain_reference,
+        run_mh_chain,
+        wide_scratch_bytes,
+    )
+    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf
+    from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+    from dvae_tpu_torch.models import VAE
+    from dvae_tpu_torch.models.blocks import init_xavier_
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    x2b, maskb = batch
+    b, n_pad, f = x2b.shape
+    l, rows = 16, b * n_pad
+    mc = McemConfig()
+    norm = power_norm(x2b, maskb)
+    shapes = [(h, False) for h in ANY_F32] + [(h, True) for h in ANY_BF16]
+
+    def model_of(h_dim):
+        return init_xavier_(VAE(f, l, h_dim), torch.Generator().manual_seed(SEED))
+
+    def body(fast):
+        return "bf16" if fast else "f32"
+
+    def hd(h_dim):
+        return " ".join(map(str, h_dim)) or "(none)"
+
+    # ---- 20a. each shape against its plain chain at the phase-3 batch's rows
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    x2 = torch.rand((rows, f), generator=gen, device=dev) + 0.05
+    vb = torch.rand((rows, f), generator=gen, device=dev) + 0.05
+    g = torch.rand((rows,), generator=gen, device=dev) + 0.5
+    z0 = 0.1 * torch.randn((rows, l), generator=gen, device=dev)
+    max_abs, seen = {}, set()
+
+    def kernel_vs_plain(mats, fast, wf, units, what, y=None):
+        """Frozen (2 + 3 steps) and live (6 + 6) segments, kernel against
+        plain; returns the printed comparisons."""
+        noise = make_chain_noise(5, rows, l, gen, dev)
+        args = (mats, x2, vb, g, z0, y, noise, 2, 3, 0.0, wf, fast)
+        zk, *ok = run_mh_chain(*args)
+        zr, *orf = mh_chain_reference(*args)
+        sync()
+        check(torch.equal(zk, z0), f"{what}: the frozen chain moved")
+        said = [agree(a, b_, fast, 1e-5, f"frozen {what}", units) for a, b_ in zip(ok, orf)]
+        frozen_abs = float((ok[0].float() - orf[0].float()).abs().max())
+        noise = make_chain_noise(12, rows, l, gen, dev)
+        args = (mats, x2, vb, g, z0, y, noise, 6, 6, 0.01, wf, fast)
+        zk, *ok = run_mh_chain(*args)
+        zr, *orf = mh_chain_reference(*args)
+        sync()
+        same = (zk - zr).abs().amax(-1) < 1e-4
+        share, moved = float(same.float().mean()), float((zk != z0).any(-1).float().mean())
+        check(share > 0.99 and moved > 0.5, f"live {what}: rows that end at the same z")
+        said += [agree(a[..., same, :], b_[..., same, :], fast, 1e-4, f"live {what}", units)
+                 for a, b_ in zip(ok, orf)]
+        n = len(ok)
+        return (f"frozen {'; '.join(said[:n])}; live {share:.4f} of rows end at the same z "
+                f"(limit 0.99), {moved:.3f} moved, on them {'; '.join(said[n:])}"), frozen_abs
+
+    for h_dim, fast in shapes:
+        mats = extract_decoder_mlp(model_of(h_dim).to(dev), l)
+        for wf in (False, True):
+            layout = chain_layout(mats, f, l, wf, fast)
+            route = decoder_route(mats.widths, fast)
+            seen.add((layout, fast, wf, route))
+            said, frozen_abs = kernel_vs_plain(mats, fast, wf, sum(h_dim),
+                                               f"{hd(h_dim)} {body(fast)} WF={wf}")
+            if not wf:
+                max_abs[h_dim, fast] = frozen_abs
+            log(f"phase 20: {body(fast)} body, --h-dim {hd(h_dim)} (decoder widths "
+                f"{mats.widths}), {'WF' if wf else 'E-step'} segments at {rows} rows, "
+                f"{layout} layout, layers from the {route}: {said}")
+    # an M2 decoder (dec_only, y_dim 1) with no hidden layer: the label's
+    # product and b_out folded into an output row bias (rows, F)
+    mats0 = extract_decoder_mlp(model_of(()).to(dev), l)
+    cmats = mats0._replace(w1y=0.3 * torch.randn((1, f), generator=gen, device=dev))
+    y = torch.rand((rows, 1), generator=gen, device=dev)
+    for wf in (False, True):
+        said, _ = kernel_vs_plain(cmats, False, wf, 256, f"depth 0, y_dim 1, WF={wf}", y)
+        log(f"phase 20: f32 body, no hidden layer with a conditioned output row bias "
+            f"(rows, {f}) from y_dim 1, {'WF' if wf else 'E-step'} segments at {rows} rows, "
+            f"{chain_layout(cmats, f, l, wf, False)} layout: {said}")
+    want = {(lay, fast, wf, route) for lay in LAYOUTS for fast in (False, True)
+            for wf in (False, True) for route in ("arguments", "table")
+            if not (fast and route == "table")}
+    check(seen == want, f"layouts x bodies x modes x decoder routes run: missing "
+          f"{sorted(want - seen)}")
+    log(f"phase 20: every layout ({', '.join(LAYOUTS)}) x body x mode x decoder route "
+        f"(the f32 body's layers from its arguments or the device table) ran against the "
+        f"plain chain ({len(seen)} of {len(want)})")
+
+    # ---- 20b. pmcem's E-step segment at R x the rows, (2048, 2048) in the wide layout
+    wide = extract_decoder_mlp(model_of((2048, 2048)).to(dev), l)
+    r = mc.pmcem_chains
+    steps = (mc.pmcem_steps - 1, 1)
+    x2r = x2.to(torch.bfloat16).repeat(r, 1)
+    vbr = vb.to(torch.bfloat16).repeat(r, 1)
+    gr, zr0 = g.repeat(r), z0.repeat(r, 1)
+    noise = make_chain_noise(sum(steps), r * rows, l, gen, dev)
+    args = (wide, x2r, vbr, gr, zr0, None, noise, *steps, mc.var_rw, False, True, True)
+    scratch = [wide_scratch_bytes(wide, n, f, l, False, True, True, dev)
+               for n in (rows, r * rows)]
+    check(scratch[0] == scratch[1] > 0, f"pmcem wide scratch {scratch} grows with the rows")
+    sync()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zk, sk = run_mh_chain(*args)
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+    pm_ms = cuda_ms(lambda: run_mh_chain(*args), reps=2)
+    zp, sp = mh_chain_reference(*args)
+    sync()
+    same = (zk - zp).abs().amax(-1) < 1e-4
+    check(float(same.float().mean()) > 0.99, "pmcem (2048, 2048): rows that end at the same z")
+    rel, differ, rel_lim, share_lim = emitted_agreement(sk[:, same], sp[:, same], True, 4096)
+    check(rel < rel_lim and differ <= share_lim, "pmcem (2048, 2048): emission")
+    pm_work = chain_work(r * rows, f, l, wide.widths, *steps, False, True)
+    pm_b, pm_by = chain_bound_ms(pm_work, True)
+    log(f"phase 20: pmcem E-step segment at (2048, 2048), {r} x {rows} = {r * rows} rows, "
+        f"{steps[0]}+{steps[1]} steps, bf16 planes, {chain_layout(wide, f, l, False, True)} "
+        f"layout: scratch {scratch[0] / 2**20:.2f} MiB at {rows} and at {r * rows} rows; "
+        f"peak device memory {peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB above "
+        f"the {held / 2**30:.3f} GiB held before the launch); kernel {pm_ms:.4f} ms, bound "
+        f"{pm_b:.4f} ms by {pm_by} ({100 * pm_b / pm_ms:.2f}%); against the plain chain "
+        f"{float(same.float().mean()):.4f} of rows end at the same z, their samples max rel "
+        f"{rel:.3e} (limit {rel_lim:.3e}), {differ:.2e} of elements differ (limit "
+        f"{share_lim:.2e}) {tag}")
+    del x2r, vbr, gr, zr0, noise, args, zk, sk, zp, sp
+
+    # ---- 20c. the M1 Enhancer at B = 32 and the full budget, each end-to-end shape
+    launches = {}
+    for h_dim in ANY_E2E:
+        model = model_of(h_dim)
+        fast = len(h_dim) == 2
+        cfg = EnhancerConfig(norm=None if h_dim else norm)
+        enh = Enhancer(model, cfg)
+        mh_chain.launches = mh_chain.launches_mma = 0
+        t0 = time.perf_counter()
+        with no_plain_chain():
+            out = enh.enhance_batch(wavs, seed=SEED)
+        sync()
+        wall = time.perf_counter() - t0
+        n_all, n_mma = mh_chain.launches, mh_chain.launches_mma
+        launches[h_dim] = n_all
+        finite = all(np.isfinite(s_).all() and np.isfinite(n_).all() and len(s_) == len(x)
+                     for (s_, n_), x in zip(out, wavs)) and np.isfinite(enh.last_cost).all()
+        log(f"phase 20: enhance_batch B={B} --h-dim {hd(h_dim)}, default config"
+            f"{' with std-normalized input' if not h_dim else ''}: {n_all} mh_chain "
+            f"launches, {n_mma} of the bf16 body (expected niter + 1 = {mc.niter + 1} of the "
+            f"{body(fast)} body), no plain chain; cost {enh.last_cost[0]:.5f} -> "
+            f"{enh.last_cost[-1]:.5f}; outputs finite: {finite}; {wall:.3f} s {tag}")
+        check(n_all == mc.niter + 1 and n_mma == (n_all if fast else 0),
+              f"{h_dim}: launches of the {body(fast)} body")
+        check(finite, f"{h_dim}: finite outputs")
+        enc_in = x2b if h_dim else (x2b - torch.from_numpy(norm[0]).to(dev)) / (
+            torch.from_numpy(norm[1]).to(dev) + cfg.norm_eps)
+        with torch.inference_mode():
+            z0b = enh.model.encode(enc_in, sample=False)[1]
+        # a frozen chain at a cut budget: every step accepts, so ten EM
+        # iterations show what a hundred would
+        frozen_vs_plain(model, McemConfig(niter=10, var_rw=0.0, fast_stats=False), wavs,
+                        (x2b, z0b, maskb), frames, plain_chain,
+                        f"--h-dim {hd(h_dim)} {body(fast)}", 20, norm=cfg.norm)
+
+    # ---- 20d. times at the phase-3 batch's rows, each beside its bound
+    w_, h_, g_ = init_nmf(torch.Generator(device=dev).manual_seed(SEED), b, n_pad, f,
+                          mc.nmf_rank, mc.eps, device=dev)
+    planes = (x2b.reshape(rows, f), compute_vb(w_, h_).reshape(rows, f).contiguous(),
+              g_.reshape(rows).contiguous())
+    entries = []
+    for h_dim, fast in shapes:
+        mats = extract_decoder_mlp(model_of(h_dim).to(dev), l)
+        times = {}
+        for wf in (False, True):
+            n_burn = mc.burnin_wf if wf else mc.burnin_e_step
+            n_samp = mc.nsamples_wf if wf else mc.nsamples_e_step
+            noise = make_chain_noise(n_burn + n_samp, rows, l, gen, dev)
+            args = (mats, *planes, z0, None, noise, n_burn, n_samp, mc.var_rw, wf, fast)
+            k_ms = cuda_ms(lambda: run_mh_chain(*args), reps=2)
+            p_ms = cuda_ms(lambda: mh_chain_reference(*args), reps=1)
+            work_ = chain_work(rows, f, l, mats.widths, n_burn, n_samp, wf)
+            b_ms, b_by = chain_bound_ms(work_, fast)
+            times[wf] = (k_ms, p_ms, b_ms, b_by)
+            log(f"phase 20: mh_chain {body(fast)} body, --h-dim {hd(h_dim)}, "
+                f"{'WF' if wf else 'E-step'} segment rows={rows} steps={n_burn}+{n_samp}, "
+                f"{chain_layout(mats, f, l, wf, fast)} layout, layers from the "
+                f"{decoder_route(mats.widths, fast)}: kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({work_[0] / 1e9:.2f} GFLOP of "
+                f"products, {work_[3] / 1e6:.1f} MB), kernel at {100 * b_ms / k_ms:.2f}% of "
+                f"bound {tag}")
+        if h_dim in launches and fast == (len(h_dim) == 2):
+            k_ms, p_ms, b_ms, b_by = times[False]  # the E-step segment
+            entries.append({
+                "name": f"mh_chain{'' if fast else '_f32'} (--h-dim {hd(h_dim)})",
+                "route": "cuda", "source": "dvae_tpu_torch/csrc/mh_chain.cu",
+                "replaces": "dvae_tpu/enhance/pallas_mcem.py:112", "launches": launches[h_dim],
+                "max_abs_err": max_abs[h_dim, fast], "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    # ---- 20e. evaluate_ntcd_m1 --h-dim 1024 1024 as a process, alone on the
+    # card, from a .pt of seeded random weights
+    pt = os.path.join(work, "m1_hdim_1024_1024.pt")
+    torch.save(model_of(ANY_CLI).state_dict(), pt)
+    noisy = sweep_tree(work, 16, SEED + 11)
+    sync()
+    t_cli = time.perf_counter()
+    cli = spawn_module("dvae_tpu_torch.cli.evaluate_ntcd_m1",
+                       ["--data-root", os.path.join(work, "data"), "--snr", "all",
+                        "--batch-size", "16", "--checkpoint", pt, "--h-dim", *map(str, ANY_CLI),
+                        "--output-dir", os.path.join(work, "eval")], count_chain=True)
+    _, (n_chain, n_mma) = collect_module(cli, "evaluate_ntcd_m1 --h-dim 1024 1024",
+                                         count_chain=True)
+    wall = time.perf_counter() - t_cli
+    files = sorted(os.path.relpath(os.path.join(d, x), os.path.join(work, "eval"))
+                   for d, _, xs in os.walk(os.path.join(work, "eval")) for x in xs)
+    want = sorted(f"{os.path.splitext(p_)[0]}{k}.wav" for p_ in noisy for k in ("_s_est", "_n_est"))
+    batches = -(-len(noisy) // 16)
+    log(f"phase 20: evaluate_ntcd_m1 --h-dim {hd(ANY_CLI)} from a .pt of seeded random weights "
+        f"over {len(noisy)} utterances of phase 10's sweep tree ({wall:.1f} s from spawn to "
+        f"exit, alone on the card): {len(files)} files, {n_chain} mh_chain launches, "
+        f"{n_mma} of the bf16 body (expected {batches} batches x (niter + 1) = "
+        f"{batches * (mc.niter + 1)}) {tag}")
+    check(files == want and n_chain == n_mma == batches * (mc.niter + 1),
+          "evaluate_ntcd_m1 --h-dim 1024 1024: outputs and bf16-body launches")
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s in all")
+    return entries
 
 
 def main() -> int:
@@ -4560,6 +4861,9 @@ def main() -> int:
                      "b_by": b_by, "max_abs": max_abs[True]})
     fast_stats_entries = fast_stats_phase(model, wavs, (x2b, z0b, maskb), frames, cuda_ms,
                                           plain_chain, agree, tag)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build_dir) as work:
+        any_entries = any_decoder_phase(wavs, (x2b, maskb), frames, cuda_ms, plain_chain, agree,
+                                        tag, work)
     peem_profile(enh.mats, (x2b, z0b, maskb), cfg.mcem, tag)
 
     def m1_chain_entry(name, fast, n):
@@ -4574,7 +4878,8 @@ def main() -> int:
                                 *stft_entries, *cond_entries, *engine_entries,
                                 *serving_entries, *labelled_entries, *cli_entries,
                                 *audio_entries, *video_entries, *scoring_entries,
-                                *depth_entries, *parallel_entries, *fast_stats_entries]}))
+                                *depth_entries, *parallel_entries, *fast_stats_entries,
+                                *any_entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

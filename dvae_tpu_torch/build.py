@@ -22,8 +22,11 @@ import tempfile
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "build"
+# --split-compile=0 optimizes a source's kernels on all host cores at once:
+# mh_chain.cu's 18 instantiations build in ~25 s instead of ~51 s, with the
+# same registers, spills and times (tools/chain_ab.py, PERF.md)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC")
+               "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:

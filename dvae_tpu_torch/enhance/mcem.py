@@ -267,7 +267,7 @@ def run_pmcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
     b, n, f = x2.shape
     r, bn, l = cfg.pmcem_chains, b * n, z_init.shape[-1]
     x2_r = _stats(x2.reshape(bn, f), cfg).repeat(r, 1)
-    if mats.b1.dim() == 2:  # the labels' row bias (B*N, H1)
+    if mats.b1.dim() == 2:  # the labels' row bias (B*N, H1), or (B*N, F) at depth 0
         mats = mats._replace(b1=mats.b1.repeat(r, 1))
 
     def planes(w, h, g, wf_mode=False):

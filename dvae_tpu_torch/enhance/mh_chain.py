@@ -26,10 +26,10 @@ The chain's randomness is an input, ``noise`` of shape
 ``(n_steps, rows, L + 1)``: L standard normals, then one ``log u`` with
 ``u ~ U[1e-38, 1)``. :func:`make_chain_noise` draws it for the main path.
 
-The decoder is any tanh MLP of 1 to :data:`MAX_DEPTH` hidden layers of 1
-to :data:`MAX_WIDTH` units (:class:`DecoderMats`). ``fast_decoder`` selects
-its precision on both paths. False: its products in f32 (the kernel's f32
-body, any depth). True, at depth 2 only: as the JAX package's
+The decoder is any tanh MLP: any number of hidden layers (none too) of any
+width (:class:`DecoderMats`). ``fast_decoder`` selects its precision on
+both paths. False: its products in f32 (the kernel's f32 body, any depth).
+True, at depth 2 only: as the JAX package's
 ``make_mlp_decoder(fast=True)``, each product rounds both operands to bf16
 and sums in f32 (the kernel's tensor-core body, which reads the weights
 packed by :func:`pack_decoder_mma`); biases, tanh, exp and the energy stay
@@ -50,9 +50,15 @@ from dvae_tpu_torch.enhance.nmf import VX_FLOOR
 
 # dynamic shared memory one H100 block may use
 _MAX_SMEM = 232448
-#: the decoders the kernel serves: 1 to MAX_DEPTH hidden layers (the
-#: kernel's MAX_HIDDEN) of 1 to MAX_WIDTH units each
-MAX_DEPTH, MAX_WIDTH = 8, 512
+# hidden layers the kernel carries in its arguments (its MAX_HIDDEN); other
+# depths, 0 too, run the instantiation that reads a table in device memory
+_ARGS_DEPTH = 8
+# frame rows of one block's tile (the kernel's TR)
+_TILE_ROWS = 16
+#: the kernel's layouts, in the order the wrapper tries them (see
+#: ``csrc/mh_chain.cu``): the WF sums and the row bias in shared memory,
+#: then in global memory, then the hidden activations too
+LAYOUTS = ("shared", "lean", "wide")
 
 # kernel launches since the last reset (only the launch in run_mh_chain
 # counts): all of them, and those of the bf16 tensor-core body
@@ -76,68 +82,64 @@ def _find_decoder(module):
 
 class DecoderMats(NamedTuple):
     """A decoder's dense weights, each (in, out) f32 and contiguous: the
-    first hidden layer split into its latent and conditioning blocks, then
-    each further hidden layer, then the output layer."""
+    first layer split into its latent and conditioning blocks, then each
+    further hidden layer, then the output layer. With no hidden layer the
+    first layer is the output layer itself (``w1z`` (L, F), ``b1`` (F,) or
+    a (rows, F) row bias, ``w_out`` and ``b_out`` None)."""
 
     w1z: torch.Tensor         # (L, H1)
     w1y: torch.Tensor | None  # (Y, H1), None for an unconditioned decoder
     b1: torch.Tensor          # (H1,), or a (rows, H1) row bias from fold_conditioning
     hidden: tuple             # ((w (H_{i-1}, H_i), b (H_i,)), ...) for layers 2..D
-    w_out: torch.Tensor       # (H_D, F)
-    b_out: torch.Tensor       # (F,)
+    w_out: torch.Tensor | None  # (H_D, F); None with no hidden layer
+    b_out: torch.Tensor | None  # (F,); None with no hidden layer
 
     @property
     def widths(self) -> tuple:
-        """The hidden widths (H1, ..., H_D)."""
+        """The hidden widths (H1, ..., H_D); () with no hidden layer."""
+        if self.w_out is None:
+            return ()
         return (self.w1z.shape[1], *(w.shape[1] for w, _ in self.hidden))
 
     def map(self, fn) -> "DecoderMats":
         """The same layout with ``fn`` applied to every tensor."""
-        return DecoderMats(fn(self.w1z), None if self.w1y is None else fn(self.w1y),
-                           fn(self.b1), tuple((fn(w), fn(b)) for w, b in self.hidden),
-                           fn(self.w_out), fn(self.b_out))
+        def opt(t):
+            return None if t is None else fn(t)
 
-
-def check_widths(widths) -> None:
-    """Raise ValueError unless the kernel serves these hidden widths."""
-    if not 1 <= len(widths) <= MAX_DEPTH or not all(1 <= h <= MAX_WIDTH for h in widths):
-        raise ValueError(
-            f"decoder hidden widths {tuple(widths)}: the MH-chain kernel serves 1 to "
-            f"{MAX_DEPTH} hidden layers of 1 to {MAX_WIDTH} units (ROADMAP A10b)")
+        return DecoderMats(fn(self.w1z), opt(self.w1y), fn(self.b1),
+                           tuple((fn(w), fn(b)) for w, b in self.hidden), opt(self.w_out),
+                           opt(self.b_out))
 
 
 def decoder_widths(model):
     """The hidden widths of the model's decoder, None when it has none.
-    Reads shapes only, so it does no device work; raises ValueError (via
-    :func:`check_widths`) for a decoder the kernel does not serve."""
+    Reads shapes only, so it does no device work."""
     dec = _find_decoder(model)
     if dec is None:
         return None
-    widths = tuple(layer.out_features for layer in getattr(dec, "hidden", ()))
-    check_widths(widths)
-    return widths
+    return tuple(layer.out_features for layer in getattr(dec, "hidden", ()))
 
 
 def extract_decoder_mlp(model, z_dim: int):
     """The decoder's weights as :class:`DecoderMats` (``w1y`` None for
-    M1), or None when the model has no decoder. Raises ValueError for a
-    decoder the kernel does not serve (:func:`check_widths`)."""
-    if decoder_widths(model) is None:
-        return None
+    M1), or None when the model has no decoder."""
     dec = _find_decoder(model)
+    if dec is None:
+        return None
 
     def c(t):
         return t.detach().float().contiguous()
 
-    first, *rest = dec.hidden
+    first, *rest = (*getattr(dec, "hidden", ()), dec.reconstruction)
     w1 = first.weight.detach().t().float()
     if w1.shape[0] < z_dim:
         raise ValueError(f"the decoder's first layer takes {w1.shape[0]} inputs, "
                          f"fewer than z_dim={z_dim}")
     w1z = w1[:z_dim].contiguous()
     w1y = w1[z_dim:].contiguous() if w1.shape[0] > z_dim else None
-    return DecoderMats(w1z, w1y, c(first.bias), tuple((c(m.weight.t()), c(m.bias)) for m in rest),
-                       c(dec.reconstruction.weight.t()), c(dec.reconstruction.bias))
+    out = (c(rest[-1].weight.t()), c(rest[-1].bias)) if rest else (None, None)
+    return DecoderMats(w1z, w1y, c(first.bias),
+                       tuple((c(m.weight.t()), c(m.bias)) for m in rest[:-1]), *out)
 
 
 def make_chain_noise(n_steps: int, rows: int, l: int, generator: torch.Generator,
@@ -156,7 +158,8 @@ def _bf16(t):
 
 def _fold_bias(mats, y, rows, fast_decoder=False):
     """The conditioning folded into a first-layer row bias ``b1 + y @ w1y``
-    (``None`` rows => the plain bias, shared by every row). With
+    (the output layer's, with no hidden layer); ``y`` None gives the plain
+    bias, shared by every row. With
     ``fast_decoder`` both operands of the product are rounded to bf16, as
     the JAX package multiplies ``[z, y]`` by ``[w1z; w1y]`` in bf16."""
     w1y, b1 = mats.w1y, mats.b1
@@ -176,7 +179,8 @@ def _fold_bias(mats, y, rows, fast_decoder=False):
 
 def fold_conditioning(mats, y, fast_decoder: bool = False):
     """``mats`` with the conditioning ``y`` (rows, Y) folded into a
-    per-row first-layer bias (rows, H1) by :func:`_fold_bias`, and no
+    per-row first-layer bias (rows, H1), or (rows, F) with no hidden layer,
+    by :func:`_fold_bias`, and no
     conditioning block left: a chain run on the result needs no ``y``.
     MCEM folds once per run, since its labels are fixed for the run.
     ``y=None`` returns ``mats`` after the mismatch check."""
@@ -198,19 +202,19 @@ def _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder, fast_stat
     rows, f = x2.shape
     l = z.shape[-1]
     widths = mats.widths
-    check_widths(widths)
     if fast_decoder and len(widths) != 2:
         raise ValueError(f"the bf16 body serves two hidden layers, not {len(widths)}: "
-                         "other depths run in f32 (ROADMAP A10b)")
-    h1 = widths[0]
+                         "other depths run in f32")
+    n1 = widths[0] if widths else f  # the first layer's outputs
     want = {
         "x2": (x2, (rows, f)), "vb": (vb, (rows, f)), "g": (g, (rows,)),
         "z": (z, (rows, l)), "noise": (noise, (n_burn + n_samples, rows, l + 1)),
         # b1 is shared by every row, or a row bias from fold_conditioning
-        "w1z": (mats.w1z, (l, h1)),
-        "b1": (mats.b1, (rows, h1) if mats.b1.dim() == 2 else (h1,)),
-        "w_out": (mats.w_out, (widths[-1], f)), "b_out": (mats.b_out, (f,)),
+        "w1z": (mats.w1z, (l, n1)),
+        "b1": (mats.b1, (rows, n1) if mats.b1.dim() == 2 else (n1,)),
     }
+    if widths:
+        want.update(w_out=(mats.w_out, (widths[-1], f)), b_out=(mats.b_out, (f,)))
     for i, (w, b) in enumerate(mats.hidden):
         want[f"hidden[{i}].w"] = (w, (widths[i], widths[i + 1]))
         want[f"hidden[{i}].b"] = (b, (widths[i + 1],))
@@ -234,7 +238,8 @@ def _check(x2, vb, g, z, noise, mats, n_burn, n_samples, fast_decoder, fast_stat
 
 def decoder_reference(mats, by, fast_decoder: bool = False):
     """The plain decoder ``z -> Vs`` of the chain, with the first layer's
-    (row) bias ``by`` from :func:`_fold_bias`: the counterpart of the JAX
+    (row) bias ``by`` from :func:`_fold_bias` (with no hidden layer, the
+    output layer's): the counterpart of the JAX
     package's ``make_mlp_decoder(mats, fast)``. Differentiable in ``z``:
     with ``fast_decoder`` its bf16 casts round the cotangents to bf16 in
     the backward pass, as the transpose of JAX's casts does."""
@@ -243,7 +248,10 @@ def decoder_reference(mats, by, fast_decoder: bool = False):
     else:
         def rnd(a):
             return a
-    w1z, w_out = rnd(mats.w1z), rnd(mats.w_out)
+    w1z = rnd(mats.w1z)
+    if mats.w_out is None:
+        return lambda z: torch.exp(rnd(z) @ w1z + by)
+    w_out = rnd(mats.w_out)
     hidden = [(rnd(w), b) for w, b in mats.hidden]
 
     def dec(z):
@@ -320,35 +328,53 @@ def build_library() -> ctypes.CDLL:
     lib = load_library("mh_chain.cu")
     p, i, pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
     for launch in (lib.mh_chain_launch, lib.mh_chain_mma_launch):
-        launch.argtypes = ([p] * 6 + [pp, pp, ctypes.POINTER(i), i, p, p] + [p] * 4 + [i] * 9
+        launch.argtypes = ([p] * 6 + [pp, pp, ctypes.POINTER(i), i, i] + [p] * 8 + [i] * 10
                            + [ctypes.c_float, p])
         launch.restype = i
-    lib.mh_chain_smem_bytes.argtypes = [i, i, ctypes.POINTER(i), i, i, i, i]
+    lib.mh_chain_smem_bytes.argtypes = [i] * 7
     lib.mh_chain_smem_bytes.restype = ctypes.c_longlong
+    lib.mh_chain_scratch_bytes.argtypes = [i, i]
+    lib.mh_chain_scratch_bytes.restype = ctypes.c_longlong
+    lib.mh_chain_resident_blocks.argtypes = [i] * 8
+    lib.mh_chain_resident_blocks.restype = i
     return lib
 
 
-def _ints(values):
-    return (ctypes.c_int * MAX_DEPTH)(*values)
+def _span(widths: tuple) -> tuple:
+    """(H_0, H_max) of the hidden widths the body takes, (0, 0) for none."""
+    return (widths[0], max(widths)) if widths else (0, 0)
 
 
 @functools.cache
-def _layout(f: int, l: int, widths: tuple, wf_mode: bool, mma: bool) -> bool:
-    """Whether one block keeps the WF sums and the first layer's row bias
-    in global memory (the lean layout) instead of shared memory: only when
-    the shared layout does not fit. Raises ValueError when neither fits
-    (decided once for each shape)."""
+def _layout(f: int, l: int, widths: tuple, wf_mode: bool, mma: bool) -> int:
+    """The index in :data:`LAYOUTS` of the first layout whose block fits
+    in shared memory. Raises ValueError when none fits (decided once for
+    each shape)."""
     lib = build_library()
 
-    def smem(lean):
-        return lib.mh_chain_smem_bytes(f, l, _ints(widths), len(widths), int(wf_mode),
-                                       int(mma), int(lean))
+    def smem(layout):
+        return lib.mh_chain_smem_bytes(f, l, *_span(widths), int(wf_mode), int(mma), layout)
 
-    for lean in (False, True):
-        if smem(lean) <= _MAX_SMEM:
-            return lean
-    raise ValueError(f"widths need {smem(True)} B of shared memory per block "
-                     f"(> {_MAX_SMEM}): F={f} L={l} H={widths}")
+    for layout in range(len(LAYOUTS)):
+        if smem(layout) <= _MAX_SMEM:
+            return layout
+    raise ValueError(f"the MH-chain kernel's block needs {smem(len(LAYOUTS) - 1)} B of "
+                     f"shared memory in its {LAYOUTS[-1]} layout (> {_MAX_SMEM}): F={f} "
+                     f"L={l} H={widths}")
+
+
+@functools.cache
+def _resident_blocks(device: int, f: int, l: int, widths: tuple, wf_mode: bool, mma: bool,
+                     fast_stats: bool) -> int:
+    """Blocks of the wide layout's instantiation resident at once on CUDA
+    device ``device``: its grid at most (once for each shape)."""
+    gen = not 1 <= len(widths) <= _ARGS_DEPTH
+    with torch.cuda.device(device):
+        n = build_library().mh_chain_resident_blocks(f, l, *_span(widths), int(wf_mode),
+                                                     int(mma), int(gen), int(fast_stats))
+    if n < 1:
+        raise RuntimeError(f"mh_chain wide layout: no block fits on the card (cudaError {-n})")
+    return n
 
 
 def pack_mma_weight(w: torch.Tensor, n_multiple: int) -> torch.Tensor:
@@ -379,11 +405,26 @@ def _body_widths(mats, fast_decoder: bool) -> tuple:
     return mats.widths if fast_decoder else tuple(h + h % 2 for h in mats.widths)
 
 
-def lean_layout(mats, f: int, l: int, wf_mode: bool, fast_decoder: bool) -> bool:
-    """Whether the kernel runs this decoder's segments at F ``f`` and L
-    ``l`` in the lean layout (the WF sums and the row bias in global
-    memory, see ``csrc/mh_chain.cu``)."""
-    return _layout(f, l, _body_widths(mats, fast_decoder), wf_mode, fast_decoder)
+def chain_layout(mats, f: int, l: int, wf_mode: bool, fast_decoder: bool) -> str:
+    """The layout (one of :data:`LAYOUTS`) in which the kernel runs this
+    decoder's segments at F ``f`` and L ``l``."""
+    return LAYOUTS[_layout(f, l, _body_widths(mats, fast_decoder), wf_mode, fast_decoder)]
+
+
+def wide_scratch_bytes(mats, rows: int, f: int, l: int, wf_mode: bool, fast_decoder: bool,
+                       fast_stats: bool = False, device=None) -> int:
+    """Bytes of global scratch a segment of ``rows`` rows allocates for its
+    hidden activations on CUDA ``device``: one slot per block of its grid
+    in the wide layout, which is at most the blocks resident at once, so it
+    stops growing with the rows; 0 in the other layouts."""
+    widths = _body_widths(mats, fast_decoder)
+    if LAYOUTS[_layout(f, l, widths, wf_mode, fast_decoder)] != "wide":
+        return 0
+    dev = torch.device("cuda" if device is None else device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    blocks = min(-(-rows // _TILE_ROWS),
+                 _resident_blocks(idx, f, l, widths, wf_mode, fast_decoder, fast_stats))
+    return blocks * build_library().mh_chain_scratch_bytes(_span(widths)[1], int(fast_decoder))
 
 
 def _zero_pad(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -402,7 +443,10 @@ def pack_decoder_mma(mats):
     which the kernel pads itself). L and the hidden widths are padded to
     multiples of 16 and F to a multiple of 8 with zero weights and zero
     biases; a padded hidden unit is tanh(0) = 0 and meets zero rows in the
-    next layer, so the padding changes nothing."""
+    next layer, so the padding changes nothing. With no hidden layer:
+    ``((), packed w1z, None)``, the output bias being ``by``."""
+    if mats.w_out is None:
+        return (), pack_mma_weight(mats.w1z, 8), None
     layers = ((pack_mma_weight(mats.w1z, 16), None),
               *((pack_mma_weight(w, 16), _pad(b, 16)) for w, b in mats.hidden))
     return layers, pack_mma_weight(mats.w_out, 8), _pad(mats.b_out, 8)
@@ -413,7 +457,10 @@ def pad_decoder_f32(mats):
     :func:`pack_decoder_mma`: the body reads two weight columns at a time,
     so each odd hidden width gets one zero unit (a zero column and bias,
     and a zero row in the next layer). Weights of even widths are kept as
-    they are."""
+    they are. With no hidden layer: ``((), w1z, None)``, the output bias
+    being ``by``."""
+    if mats.w_out is None:
+        return (), mats.w1z, None
     even = _body_widths(mats, False)
     ins = (mats.w1z.shape[0], *even[:-1])
     ws = (mats.w1z, *(w for w, _ in mats.hidden))
@@ -428,19 +475,37 @@ _PACKS: dict = {}
 _PACKS_KEPT = 4
 
 
+def _layer_table(layers) -> torch.Tensor | None:
+    """The hidden layers as the kernel's device table (one ``(weight,
+    bias, width)`` row of int64 per layer, the first bias 0) for a depth
+    past :data:`_ARGS_DEPTH`, which the kernel's arguments do not carry;
+    None otherwise (depth 0 has no layer to list)."""
+    if len(layers) <= _ARGS_DEPTH:
+        return None
+    rows = [[w.data_ptr(), 0 if b is None else b.data_ptr(), w.shape[1]] for w, b in layers]
+    return torch.tensor(rows, dtype=torch.int64).to(layers[0][0].device)
+
+
 def _packed(mats, fast_decoder):
-    """:func:`pack_decoder_mma` (or :func:`pad_decoder_f32`) of ``mats``,
-    cached on the tensors' address, version counter and shape: the launches
-    of one enhanced batch pack once, and new or updated weights pack anew."""
-    src = (mats.w1z, *(t for layer in mats.hidden for t in layer), mats.w_out, mats.b_out)
+    """:func:`pack_decoder_mma` (or :func:`pad_decoder_f32`) of ``mats``
+    and its :func:`_layer_table`, cached on the tensors' address, version
+    counter and shape: the launches of one enhanced batch pack once, and
+    new or updated weights pack anew."""
+    src = tuple(t for t in (mats.w1z, *(t for layer in mats.hidden for t in layer), mats.w_out,
+                            mats.b_out) if t is not None)
     key = (fast_decoder, *((t.data_ptr(), t._version, tuple(t.shape)) for t in src))
     hit = _PACKS.get(key)
     if hit is None:
         if len(_PACKS) >= _PACKS_KEPT:
             del _PACKS[next(iter(_PACKS))]
-        pack = pack_decoder_mma if fast_decoder else pad_decoder_f32
-        hit = _PACKS[key] = (src, pack(mats))
+        pack = (pack_decoder_mma if fast_decoder else pad_decoder_f32)(mats)
+        hit = _PACKS[key] = (src, (*pack, _layer_table(pack[0])))
     return hit[1]
+
+
+def _ptrs(values, ctype):
+    """A ctypes array of ``values`` (at least one entry)."""
+    return (ctype * max(len(values), 1))(*values)
 
 
 def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
@@ -448,20 +513,27 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
     global launches, launches_mma
     rows, f = x2.shape
     l = z.shape[-1]
-    layers, w_out, b_out = _packed(mats, fast_decoder)
+    layers, w_out, b_out, table = _packed(mats, fast_decoder)
     widths = _body_widths(mats, fast_decoder)
     if fast_decoder:
         launch = build_library().mh_chain_mma_launch
     else:
         launch = build_library().mh_chain_launch
-        if widths[0] != by.shape[-1]:  # an odd first width: one zero bias column
+        if widths and widths[0] != by.shape[-1]:  # an odd first width: one zero bias column
             by = torch.nn.functional.pad(by, (0, 1)).contiguous()
         # the hidden layers read 2 weight columns at a time as one 8-byte load
         if any(w.data_ptr() % 8 for w, _ in layers):
             raise ValueError("the f32 body needs 8-byte aligned hidden weights")
-    lean = lean_layout(mats, f, l, wf_mode, fast_decoder)
-    ws = (ctypes.c_void_p * MAX_DEPTH)(*(w.data_ptr() for w, _ in layers))
-    bs = (ctypes.c_void_p * MAX_DEPTH)(*(None if b is None else b.data_ptr() for _, b in layers))
+    layout = _layout(f, l, widths, wf_mode, fast_decoder)
+    scratch, slots = None, 0
+    n_scratch = wide_scratch_bytes(mats, rows, f, l, wf_mode, fast_decoder, fast_stats,
+                                   x2.device)
+    if n_scratch:
+        scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=x2.device)
+        slots = n_scratch // build_library().mh_chain_scratch_bytes(_span(widths)[1],
+                                                                    int(fast_decoder))
+    ws = _ptrs([w.data_ptr() for w, _ in layers], ctypes.c_void_p)
+    bs = _ptrs([None if b is None else b.data_ptr() for _, b in layers], ctypes.c_void_p)
     z_out = torch.empty((rows, l), device=x2.device)
     if wf_mode:
         outs = (torch.empty((rows, f), device=x2.device),
@@ -475,12 +547,15 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
     with torch.cuda.device(x2.device):
         err = launch(
             x2.data_ptr(), vb.data_ptr(), g.data_ptr(), z.data_ptr(), by.data_ptr(),
-            noise.data_ptr(), ws, bs, _ints(widths), len(widths), w_out.data_ptr(),
-            b_out.data_ptr(), z_out.data_ptr(), samples_p, wfs_p, wfn_p, rows, f, l,
-            n_burn + n_samples, n_burn, by_stride, int(wf_mode), int(lean), int(fast_stats),
+            noise.data_ptr(), ws, bs, _ptrs(widths, ctypes.c_int), len(widths),
+            _span(widths)[1], None if table is None else table.data_ptr(), w_out.data_ptr(),
+            by.data_ptr() if b_out is None else b_out.data_ptr(), z_out.data_ptr(), samples_p,
+            wfs_p, wfn_p, None if scratch is None else scratch.data_ptr(), slots, rows, f, l,
+            n_burn + n_samples, n_burn, by_stride, int(wf_mode), layout, int(fast_stats),
             math.sqrt(var_rw), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"mh_chain kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"mh_chain kernel launch failed: cudaError {err} (F={f} L={l} "
+                           f"H={mats.widths}, {LAYOUTS[layout]} layout)")
     launches += 1
     launches_mma += fast_decoder
     return (z_out, *outs)
@@ -497,7 +572,7 @@ def run_mh_chain(mats, x2, vb, g, z, y, noise, n_burn: int, n_samples: int,
             dtypes of :func:`plane_dtypes` (float32 unless ``fast_stats``).
         g: (rows,) gains; z: (rows, L) current latents.
         y: optional (rows, Y) conditioning labels, folded into the first
-            layer's bias.
+            layer's bias (with no hidden layer, the output layer's).
         noise: (n_burn + n_samples, rows, L + 1), see :func:`make_chain_noise`.
         fast_decoder: bf16 products with f32 sums (the tensor-core body,
             two hidden layers only) if True, f32 products if False.

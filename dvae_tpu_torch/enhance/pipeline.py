@@ -145,7 +145,7 @@ class Enhancer:
         if cfg.aot_dir is not None:
             raise NotImplementedError(f"aot_dir={cfg.aot_dir!r}: the AOT executable cache is "
                                       "XLA-specific and is not ported")
-        # the decoder's widths, checked before any device work
+        # checked before any device work
         if decoder_widths(model) is None:
             raise ValueError("the E-step engines need a model with a decoder")
         if mesh is None:

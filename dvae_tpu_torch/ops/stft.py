@@ -10,7 +10,9 @@ Layout is (..., frames, bins), as in the JAX package. The DFT is a pair of
 f32 matmuls against cos/-sin bases with the window folded in; the bases are
 built once with numpy and moved to each device once. :func:`stft` joins the
 two parts into a complex tensor and :func:`stft_to_host` into a host
-complex64 array (the figures' spectrograms).
+complex64 array (the figures' spectrograms). :func:`istft` inverts one
+spectrogram of known frame count on its device, :func:`istft_np` on the
+host.
 """
 
 from __future__ import annotations
@@ -279,3 +281,25 @@ def istft_realimag_masked(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor
         half = nfft // 2
         x = x[..., half:-half]
     return x
+
+
+def istft(S: torch.Tensor, cfg: StftConfig = StftConfig(), length: int | None = None
+          ) -> torch.Tensor:
+    """Inverse STFT of a (..., n_frames, n_bins) complex tensor -> (..., T)
+    float32, on its device: librosa.istft's semantics (windowed overlap-add,
+    the squared-window normalizer where it exceeds float32's tiny, centre
+    trimming, zero-pad or truncation to ``length`` samples). It is
+    :func:`istft_realimag_masked` with every frame valid, whose normalizer
+    is then librosa's ifft_window_sum."""
+    ones = torch.ones(S.shape[:-1], device=S.device)
+    x = istft_realimag_masked(S.real.float(), S.imag.float(), ones, cfg)
+    if length is not None:
+        x = nnf.pad(x, (0, max(0, length - x.shape[-1])))[..., :length]
+    return x
+
+
+def istft_np(S: np.ndarray, cfg: StftConfig = StftConfig(), length: int | None = None
+             ) -> np.ndarray:
+    """Host-side (numpy) ISTFT: :func:`istft` on the CPU, for per-utterance
+    outputs whose normalizer depends on their own frame count."""
+    return istft(torch.from_numpy(np.asarray(S)), cfg, length).numpy()

@@ -334,7 +334,7 @@ def test_cuda_fast_stats_lean_layout_matches_plain(cuda):
     """The bf16 body at (256, 256) in WF mode runs the lean layout (WF sums in
     global memory), fast_stats on: frozen, against the plain chain."""
     mats, x2, vb, g, z0, gen = _problem(cuda, 1000, (256, 256), seed=11)
-    assert mh_chain.lean_layout(mats, F, L, True, True)
+    assert mh_chain.chain_layout(mats, F, L, True, True) == "lean"
     noise = make_chain_noise(5, 1000, L, gen, cuda)
     args = (mats, x2.to(torch.bfloat16), vb, g, z0, None, noise, 2, 3, 0.0, True, True)
     zk, *ok = run_mh_chain(*args, fast_stats=True)

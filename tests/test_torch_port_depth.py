@@ -1,24 +1,32 @@
-"""Port parity at any decoder depth (ROADMAP A10) and the BatchNorm
-classifier (A16), against the JAX package, at F 65, L 8 and 32 frame rows.
+"""Port parity at any decoder depth and width (ROADMAP A10, A10b) and the
+BatchNorm classifier (A16), against the JAX package, at F 65, L 8 and 32
+frame rows.
 
-The JAX package builds decoders of any depth; its Pallas kernel and its
-bf16 decoder take two hidden layers only, so at any other depth it runs its
-scan engines on the Flax decoder in f32 (``extract_decoder_mlp`` gives
-None, and ``_prep_em`` swaps in no bf16 decoder). The port runs every depth
-from 1 to 8 through its chain (the kernel's f32 body on the card, the plain
-chain here), in f32 at any depth but 2 whatever ``fast_decoder`` says. So:
+The JAX package builds decoders of any depth and width; its Pallas kernel
+and its bf16 decoder take two hidden layers only, so at any other depth it
+runs its scan engines on the Flax decoder in f32 (``extract_decoder_mlp``
+gives None, and ``_prep_em`` swaps in no bf16 decoder). The port runs every
+depth, none and past 8 too, and every width through its chain (the kernel's
+f32 body on the card, the plain chain here), in f32 at any depth but 2
+whatever ``fast_decoder`` says. So:
 
 * the plain chain is held against JAX's scan step (``mcem._make_mh_step``)
   on the Flax decoder, fed the noise rebuilt from the keys of that step,
   frozen and live, E-step samples and WF sums, at rtol 2e-4 / atol 1e-5 (as
   test_torch_port_mh_chain.py: summation order, compounded over the steps;
-  an acceptance flip would show as an O(1) error);
+  an acceptance flip would show as an O(1) error), at depth 0 (M1 and
+  conditioned), 1, 3, 9 and 16, odd widths and a width of 1024; the bf16
+  chain at 1024 1024 against the step on JAX's ``make_mlp_decoder(fast=True)``
+  by test_torch_port_mh_chain.py's bf16 rule;
 * every engine, frozen or deterministic, with a shared NMF init and the
   port's ``fast_decoder=True``, at rtol 1e-4 (atol 1e-6, 1e-5 for the
   latent, as test_torch_port_engines.py) against JAX's, and bitwise equal
   to the port's own ``fast_decoder=False`` run;
 * the frozen ``Enhancer`` at depth 3 with the default ``fast_decoder``, its
-  waveforms within 1e-4 of the peak of JAX's (as test_torch_port_pipeline.py);
+  waveforms within 1e-4 of the peak of JAX's (as test_torch_port_pipeline.py),
+  and so at depth 0, depth 9 and width 513 (the decoders the port refused
+  before); at ``--h-dim 1024 1024``, the bf16 route, within
+  ``BF16_WAVE_TOL`` of the peak;
 * ``Classifier(batch_norm=True)`` against Flax in both modes, outputs and
   updated running statistics at rtol 1e-5.
 
@@ -66,7 +74,8 @@ needs_jax = pytest.mark.skipif(jax is None, reason="the parity tests need the JA
 
 B, N, F, L, K, Y = 2, 16, 65, 8, 4, 3
 ROWS = B * N
-DEPTHS = {"d1": (24,), "d3": (32, 16, 8), "odd": (31, 17)}
+DEPTHS = {"d1": (24,), "d3": (32, 16, 8), "odd": (31, 17), "d0": (), "d9": (32,) * 9,
+          "d16": (32,) * 16, "w1024": (1024,)}
 BUDGET = dict(nsamples_e_step=3, burnin_e_step=2, nsamples_wf=4, burnin_wf=2, nmf_rank=K,
               peem_steps=3, pmcem_chains=3, pmcem_steps=2, pmcem_wf_burn=2)
 NAMES = ("wfs", "wfn", "cost", "z", "w", "h", "g")
@@ -112,18 +121,20 @@ def _problem(h_dim, cond, seed=0):
 @pytest.mark.parametrize("depth", DEPTHS, ids=list(DEPTHS))
 def test_extract_decoder_mlp_at_any_depth(depth):
     """The first layer split at L, each further hidden layer, the output
-    layer: the Flax decoder's Dense weights, transposed back. JAX's own
-    extraction serves two hidden layers only."""
+    layer: the Flax decoder's Dense weights, transposed back; with no hidden
+    layer the output layer is the first. JAX's own extraction serves two
+    hidden layers only."""
     from test_torch_port_mh_chain import mats_from_jax, mats_tensors
 
     _, params, tm = _models(DEPTHS[depth], False)
     dec = params["params"]["decoder"]
-    layers = [dec["hidden"][f"layers_{i}"] for i in range(len(dec["hidden"]))]
+    hidden = dec.get("hidden", {})
+    layers = [*(hidden[f"layers_{i}"] for i in range(len(hidden))), dec["reconstruction"]]
     mats = extract_decoder_mlp(tm, L)
     assert mats.widths == tuple(reversed(DEPTHS[depth])) and mats.w1y is None
+    last = (layers[-1]["kernel"], layers[-1]["bias"]) if len(layers) > 1 else (None, None)
     want = [layers[0]["kernel"], None, layers[0]["bias"],
-            *(a for lay in layers[1:] for a in (lay["kernel"], lay["bias"])),
-            dec["reconstruction"]["kernel"], dec["reconstruction"]["bias"]]
+            *(a for lay in layers[1:-1] for a in (lay["kernel"], lay["bias"])), *last]
     for a, b in zip(want, mats_tensors(mats), strict=True):
         assert (a is None) == (b is None)
         if a is not None:
@@ -153,16 +164,16 @@ def test_f32_padding_keeps_the_decoder():
         torch.testing.assert_close(decoder_reference(mats, mats.b1)(z), tm.decode(z))
 
 
-def _jax_chain(p, keys, n_burn, var_rw, wf_mode):
-    """JAX's scan step on the Flax decoder over ``keys``: the final z, and
-    the accepted Vs of each post-burn-in step (E-step) or their Wiener
-    sums (WF)."""
+def _jax_chain(p, keys, n_burn, var_rw, wf_mode, decoder=None):
+    """JAX's scan step on the Flax decoder (or ``decoder``) over ``keys``:
+    the final z, and the accepted Vs of each post-burn-in step (E-step) or
+    their Wiener sums (WF)."""
     jm, params = p["jm"], p["params"]
     x2, vb = jnp.asarray(p["x2"]), jnp.asarray(p["vb"])
     g = jnp.asarray(p["nmf"][2])
     y = None if p["y"] is None else jnp.asarray(p["y"])
     dec, energy, step, _ = jmcem._make_mh_step(
-        lambda zin: jm.apply(params, zin, method="decode"), x2, y, var_rw)
+        decoder or (lambda zin: jm.apply(params, zin, method="decode")), x2, y, var_rw)
     z = jnp.asarray(p["z0"])
     vs = dec(z)
     carry = (z, vs, energy(z, vs, vb, g))
@@ -196,7 +207,8 @@ def _noise_of(keys):
     return torch.from_numpy(np.array(jnp.stack(steps)))
 
 
-CHAIN_CASES = [("m1", "d1"), ("m1", "d3"), ("m1", "odd"), ("cond", "d3")]
+CHAIN_CASES = [("m1", "d1"), ("m1", "d3"), ("m1", "odd"), ("cond", "d3"), ("m1", "d0"),
+               ("cond", "d0"), ("m1", "d9"), ("m1", "d16"), ("m1", "w1024")]
 
 
 @needs_jax
@@ -225,9 +237,55 @@ def test_plain_chain_matches_jax_step(family, depth, var_rw, wf_mode):
         np.testing.assert_allclose(b.numpy(), a, rtol=2e-4, atol=1e-5)
 
 
+def _bf16_share(units: int) -> float:
+    """The share of bf16-route elements that must agree within 1e-5 for a
+    decoder of ``units`` hidden units: 0.99 up to 256 units (as
+    test_torch_port_mh_chain.py at 128 128), the allowance growing in
+    proportion beyond, as ``chip_smoke.py::bf16_share_limit`` scales it. A
+    row's Vs moves when any one of its units rounds to the other side of a
+    bf16 boundary, so the rows that move grow with the units (2.1% of the
+    elements at 1024 1024 here)."""
+    return 1.0 - 0.01 * max(1.0, units / 256)
+
+
+@needs_jax
+@pytest.mark.parametrize("var_rw", [0.0, 0.01], ids=["frozen", "live"])
+@pytest.mark.parametrize("wf_mode", [False, True], ids=["estep", "wf"])
+def test_plain_bf16_chain_at_1024_matches_jax_fast_step(var_rw, wf_mode):
+    """The bf16 route at ``--h-dim 1024 1024``: the plain chain at
+    ``fast_decoder=True`` against JAX's scan step on
+    ``make_mlp_decoder(fast=True)`` of the same weights (JAX's own
+    extraction serves two hidden layers at any width), fed the same noise.
+    The latents by the f32 chain's limits (the energy stays f32); the
+    samples and WF sums by test_torch_port_mh_chain.py's bf16 rule, 5e-3
+    relative on every element, with the share within 1e-5 scaled to the
+    units (:func:`_bf16_share`)."""
+    p = _problem((1024, 1024), False, seed=2)
+    jmats = jax_extract(p["params"], L)
+    assert jmats is not None
+    n_burn, n_samples = 2, 3
+    keys = jax.random.split(jax.random.PRNGKey(5), n_burn + n_samples)
+    want = _jax_chain(p, keys, n_burn, var_rw, wf_mode, jmcem.make_mlp_decoder(jmats, fast=True))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    mats = extract_decoder_mlp(p["tm"], L)
+    assert mats.widths == (1024, 1024)
+    got = mh_chain_reference(mats, t(p["x2"].reshape(ROWS, F)), t(p["vb"].reshape(ROWS, F)),
+                             t(p["nmf"][2].reshape(ROWS)), t(p["z0"].reshape(ROWS, L)), None,
+                             _noise_of(keys), n_burn, n_samples, var_rw, wf_mode,
+                             fast_decoder=True)
+    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=2e-4, atol=1e-5)
+    for a, b in zip(want[1:], got[1:], strict=True):
+        rel = np.abs(b.numpy() - a) / np.abs(a)
+        assert rel.max() < 5e-3, rel.max()
+        assert (rel < 1e-5).mean() >= _bf16_share(2048), (rel < 1e-5).mean()
+
+
 @needs_jax
 @pytest.mark.parametrize("cond", [False, True], ids=["m1", "cond"])
-@pytest.mark.parametrize("depth", ["d1", "d3"])
+@pytest.mark.parametrize("depth", ["d1", "d3", "d0", "d9"])
 @pytest.mark.parametrize("engine", ENGINES)
 def test_engines_match_jax_at_any_depth(engine, depth, cond):
     """Frozen (var_rw = 0) or deterministic runs of every engine: the port
@@ -317,25 +375,99 @@ def test_frozen_enhancer_at_depth_3_matches_jax(monkeypatch):
     assert np.isfinite(enh.last_cost).all()
 
 
+@pytest.fixture
+def shared_nmf_init(monkeypatch):
+    """Both packages' init_nmf return the same numpy-seeded (W, H, g)."""
+    def draw(batch, n_frames, n_freq, rank, eps):
+        rng = np.random.default_rng(batch * 1000 + n_frames)
+        return (np.maximum(rng.uniform(size=(batch, n_freq, rank)), eps).astype(np.float32),
+                np.maximum(rng.uniform(size=(batch, n_frames, rank)), eps).astype(np.float32),
+                np.ones((batch, n_frames), np.float32))
+
+    monkeypatch.setattr(jmcem, "init_nmf", lambda key, *a: tuple(map(jnp.asarray, draw(*a))))
+    monkeypatch.setattr(tmcem, "init_nmf", lambda gen, *a, device=None: tuple(
+        torch.from_numpy(m).to(device) for m in draw(*a)))
+
+
+def _frozen_enhancers(h_dim, ws, budget, l=16):
+    """Both Enhancers at the default ``fast_decoder`` on a ``VAE(513, l,
+    h_dim)`` of the same weights, a frozen chain at f32 planes: (JAX's
+    outputs, the port's Enhancer, the port's outputs, its launches)."""
+    jm, params, tm = _models(h_dim, False, f=513, l=l)
+    budget = dict(budget, var_rw=0.0)
+    jcfg = JaxEnhancerConfig(mcem=jmcem.McemConfig(**budget, fast_stats=False),
+                             wire_dtype="float32")
+    jout = JaxEnhancer(jm, params, jcfg).enhance_batch(ws, key=jax.random.PRNGKey(0))
+    tcfg = EnhancerConfig(mcem=tmcem.McemConfig(**budget, fast_stats=False),
+                          wire_dtype="float32")
+    assert tcfg.mcem.fast_decoder and jcfg.mcem.fast_decoder
+    enh = Enhancer(tm, tcfg, device="cpu")
+    before = mh_chain.launches
+    tout = enh.enhance_batch(ws, seed=0)
+    return jout, enh, tout, mh_chain.launches - before
+
+
+# the bf16 route's waveforms against JAX's, relative to each utterance's
+# peak, as test_torch_port_fast_stats.py holds the default Enhancer: both
+# round the same operands to bf16, and a unit whose f32 sum lies within
+# rounding of a bf16 boundary rounds to either side in the two packages;
+# at 2 x 1024 units ~2% of the Vs elements move, each by up to ~1e-3
+# relative (measured here: 2.1e-5 of the peak)
+BF16_WAVE_TOL = 5e-4
+
+
+@needs_jax
 @pytest.mark.parametrize("h_dim", [(), (32,) * 9, (513,)], ids=["depth0", "depth9", "width513"])
-def test_unsupported_decoders_raise_before_device_work(h_dim):
-    """Depth 0, depth 9 and width 513 raise ValueError naming ROADMAP A10b
-    in ``Enhancer.__init__``, before the device is resolved (so also where
-    ``device="cuda"`` names a card this host lacks); the chain's own check
-    refuses them too."""
-    tm = tmodels.VAE(F, L, h_dim)
-    for device in ("cpu", "cuda"):
-        with pytest.raises(ValueError, match="ROADMAP A10b"):
-            Enhancer(tm, device=device)
-    with pytest.raises(ValueError, match="ROADMAP A10b"):
-        extract_decoder_mlp(tm, L)
-    # the bf16 body serves two hidden layers: other depths are refused, not
-    # sent to the plain chain
-    mats = extract_decoder_mlp(tmodels.VAE(F, L, (16, 16, 16)), L)
-    x2 = torch.ones((ROWS, F))
-    with pytest.raises(ValueError, match="A10b"):
-        run_mh_chain(mats, x2, x2, torch.ones(ROWS), torch.zeros((ROWS, L)), None,
-                     torch.zeros((1, ROWS, L + 1)), 0, 1, 0.0, fast_decoder=True)
+def test_former_a10b_decoders_build_and_match_jax(h_dim, shared_nmf_init):
+    """Depth 0, depth 9 and width 513, which the port refused before, build
+    an ``Enhancer`` (on the CPU, and before the device is resolved) and
+    enhance as JAX's does: frozen chain, f32 on both sides (depth 1 of 513
+    runs f32 too), waveforms finite and within 1e-4 of the peak, the
+    partition. The mixtures are quiet (peak ~0.05): with no tanh layer
+    before its exp, a random decoder's Vs overflows to inf in both packages
+    at full scale, where the encoder's mean grows with the power."""
+    ws = [0.05 * w for w in _wavs(lengths=(9000, 4000))]
+    budget = dict(niter=2, nsamples_e_step=2, burnin_e_step=1, nsamples_wf=2, burnin_wf=1)
+    jout, enh, tout, n = _frozen_enhancers(h_dim, ws, budget, l=8)
+    assert enh.mats.widths == tuple(reversed(h_dim)) and n == 0
+    for (js, jn), (ts, tn), x in zip(jout, tout, ws, strict=True):
+        assert np.isfinite(js).all() and np.isfinite(ts).all() and np.isfinite(tn).all()
+        peak = np.abs(js).max() + 1e-9
+        np.testing.assert_allclose(ts, js, atol=1e-4 * peak)
+        np.testing.assert_allclose(tn, jn, atol=1e-4 * peak)
+        np.testing.assert_allclose(ts + tn, x, atol=1e-4 * np.abs(x).max())
+
+
+def test_bf16_body_refuses_other_depths():
+    """The bf16 body serves two hidden layers, as the JAX package's bf16
+    decoder does: other depths are refused, not sent to the plain chain
+    (the engines clear ``fast_decoder`` there first)."""
+    for h_dim in ((16, 16, 16), (), (16,)):
+        mats = extract_decoder_mlp(tmodels.VAE(F, L, h_dim), L)
+        x2 = torch.ones((ROWS, F))
+        with pytest.raises(ValueError, match="the bf16 body serves two hidden layers"):
+            run_mh_chain(mats, x2, x2, torch.ones(ROWS), torch.zeros((ROWS, L)), None,
+                         torch.zeros((1, ROWS, L + 1)), 0, 1, 0.0, fast_decoder=True)
+
+
+@needs_jax
+def test_frozen_enhancer_at_1024_1024_bf16_matches_jax(shared_nmf_init):
+    """``--h-dim 1024 1024`` through both Enhancers at the default
+    ``fast_decoder=True``, the bf16 route on both sides (JAX's
+    ``make_mlp_decoder(fast=True)``, the port's bf16 plain chain here, its
+    tensor-core body on the card): waveforms within ``BF16_WAVE_TOL`` of
+    the peak, the partition s + n = x."""
+    ws = _wavs(lengths=(8000, 5000))
+    budget = dict(niter=2, nsamples_e_step=2, burnin_e_step=1, nsamples_wf=2, burnin_wf=1)
+    jout, enh, tout, n = _frozen_enhancers((1024, 1024), ws, budget)
+    assert enh.mats.widths == (1024, 1024) and n == 0
+    for (js, jn), (ts, tn), x in zip(jout, tout, ws, strict=True):
+        assert np.isfinite(js).all() and np.isfinite(ts).all() and np.isfinite(tn).all()
+        peak = np.abs(js).max() + 1e-9
+        np.testing.assert_allclose(ts, js, atol=BF16_WAVE_TOL * peak)
+        np.testing.assert_allclose(tn, jn, atol=BF16_WAVE_TOL * peak)
+        np.testing.assert_allclose(ts + tn, x, atol=1e-4 * np.abs(x).max())
+    assert np.isfinite(enh.last_cost).all()
 
 
 @needs_jax
@@ -445,14 +577,22 @@ def _card_problem(dev, rows, h_dim, seed=0):
     return extract_decoder_mlp(tm, 16), x2, vb, g, z0, gen
 
 
-def _kernel_vs_plain(dev, h_dim, fast, wf_mode, rows=1000):
+def _kernel_vs_plain(dev, h_dim, fast, wf_mode, rows=1000, cond=0, share=0.99):
     """Frozen: the outputs at rtol 1e-5 (f32) or by the bf16 rule; live:
     >= 99% of rows end at the same z, and their outputs agree at rtol 1e-4
-    (f32) or by the bf16 rule (test_torch_port_cuda.py's tolerances)."""
+    (f32) or by the bf16 rule (test_torch_port_cuda.py's tolerances: the
+    bf16 outputs within 5e-3 relative, and a ``share`` of them within
+    1e-5). ``cond``: that many soft labels folded into the first layer's
+    row bias (with no hidden layer, the output layer's)."""
     mats, x2, vb, g, z0, gen = _card_problem(dev, rows, h_dim)
+    y = None
+    if cond:
+        n1 = mats.w1z.shape[1]
+        mats = mats._replace(w1y=0.3 * torch.randn((cond, n1), generator=gen, device=dev))
+        y = torch.rand((rows, cond), generator=gen, device=dev)
     for var_rw in (0.0, 0.01):
         noise = make_chain_noise(8, rows, 16, gen, dev)
-        args = (mats, x2, vb, g, z0, None, noise, 4, 4, var_rw, wf_mode, fast)
+        args = (mats, x2, vb, g, z0, y, noise, 4, 4, var_rw, wf_mode, fast)
         before, before_mma = mh_chain.launches, mh_chain.launches_mma
         zk, *ok = run_mh_chain(*args)
         torch.cuda.synchronize()
@@ -464,10 +604,12 @@ def _kernel_vs_plain(dev, h_dim, fast, wf_mode, rows=1000):
             a, b = a[..., same, :], b[..., same, :]
             if fast:
                 rel = (a - b).abs() / b.abs().clamp_min(1e-30)
-                assert float(rel.max()) < 5e-3 and float((rel < 1e-5).float().mean()) >= 0.99
+                assert float(rel.max()) < 5e-3
+                assert float((rel < 1e-5).float().mean()) >= share
             else:
                 torch.testing.assert_close(a, b, rtol=1e-5 if var_rw == 0.0 else 1e-4,
                                            atol=1e-6 if var_rw == 0.0 else 1e-5)
+    return mats
 
 
 @pytest.mark.cuda
@@ -483,6 +625,70 @@ def test_cuda_bf16_body_wide_wf_matches_plain(cuda):
     """(256, 256) in WF mode does not fit one block's shared memory with
     the WF sums beside the planes: the lean layout serves it."""
     _kernel_vs_plain(cuda, (256, 256), True, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_dim,fast", [((1024,), False), ((1024,) + (64,) * 8, False),
+                                        ((2048, 2048), True)],
+                         ids=["f32", "f32-table", "bf16"])
+@pytest.mark.parametrize("wf_mode", [False, True], ids=["estep", "wf"])
+def test_cuda_wide_layout_matches_plain(cuda, h_dim, fast, wf_mode):
+    """Hidden activations that do not fit beside the planes run in the wide
+    layout (a global scratch slot per resident block): 4,000 rows are 250
+    tiles, more than the blocks resident at once, so blocks loop over
+    tiles; the scratch is the same at ten times the rows. Nine layers
+    (eight of 64, then 1024) read the device table."""
+    share = _bf16_share(sum(h_dim)) if fast else 0.99
+    mats = _kernel_vs_plain(cuda, h_dim, fast, wf_mode, rows=4000, share=share)
+    assert mh_chain.chain_layout(mats, 513, 16, wf_mode, fast) == "wide"
+    small, big = (mh_chain.wide_scratch_bytes(mats, r, 513, 16, wf_mode, fast, device=cuda)
+                  for r in (4000, 40000))
+    assert 0 < small == big < 4000 // 16 * mh_chain.wide_scratch_bytes(mats, 16, 513, 16,
+                                                                        wf_mode, fast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wf_mode", [False, True], ids=["estep", "wf"])
+def test_cuda_depth0_conditioned_matches_plain(cuda, wf_mode):
+    """No hidden layer: the output layer reads z' and a (rows, F) row bias
+    folded from two soft labels."""
+    mats = _kernel_vs_plain(cuda, (), False, wf_mode, cond=2)
+    assert mats.widths == () and mats.w1y.shape == (2, 513)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wf_mode", [False, True], ids=["estep", "wf"])
+def test_cuda_depth12_matches_plain(cuda, wf_mode):
+    """Twelve hidden layers, past the depths the kernel carries in its
+    arguments: the layers from the device table."""
+    _kernel_vs_plain(cuda, (64,) * 11 + (96,), False, wf_mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wf_mode", [False, True], ids=["estep", "wf"])
+def test_cuda_deep_lean_layout_matches_plain(cuda, wf_mode):
+    """Nine layers of 640 from the device table, their activations beside
+    planes that leave the WF sums and the row bias in global memory."""
+    mats = _kernel_vs_plain(cuda, (640,) * 9, False, wf_mode)
+    assert mh_chain.chain_layout(mats, 513, 16, wf_mode, False) == "lean"
+
+
+@pytest.mark.cuda
+def test_cuda_enhancer_at_1024_1024_runs_the_bf16_body(cuda, monkeypatch):
+    """A default-config Enhancer at ``--h-dim 1024 1024``: niter + 1
+    launches, all of the bf16 body, and no plain chain."""
+    def plain(*args, **kw):
+        raise AssertionError("the plain chain ran on CUDA tensors")
+
+    monkeypatch.setattr(mh_chain, "mh_chain_reference", plain)
+    cfg = EnhancerConfig(mcem=tmcem.McemConfig(niter=5))
+    enh = Enhancer(tmodels.VAE(513, 16, (1024, 1024)), cfg)
+    before, before_mma = mh_chain.launches, mh_chain.launches_mma
+    out = enh.enhance_batch(_wavs(), seed=0)
+    torch.cuda.synchronize()
+    assert mh_chain.launches == before + cfg.mcem.niter + 1
+    assert mh_chain.launches_mma == before_mma + cfg.mcem.niter + 1
+    assert all(np.isfinite(s).all() and np.isfinite(n).all() for s, n in out)
 
 
 @pytest.mark.cuda

@@ -104,3 +104,68 @@ def test_overlap_add_irregular_hop_matches_jax():
         want = np.asarray(jstft._overlap_add(jnp.asarray(frames), hop))
         got = tstft._overlap_add(torch.from_numpy(frames), hop).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _spectrogram(center, seed=3, lengths=(12345, 7000)):
+    """A (2, frames, 513) complex64 STFT of a seeded signal pair (the
+    shorter one zero-padded), and the longer one's length."""
+    x, _ = _ragged_batch(seed, lengths)
+    re, im = jstft.stft_realimag(jnp.asarray(x), jstft.StftConfig(center=center))
+    return (np.asarray(re) + 1j * np.asarray(im)).astype(np.complex64), x
+
+
+@pytest.mark.parametrize("length", [None, "short", "long"])
+@pytest.mark.parametrize("center", [False, True], ids=["uncentred", "centred"])
+def test_istft_and_istft_np_match_jax(center, length):
+    """``istft`` (on a complex tensor) and ``istft_np`` against JAX's on the
+    same spectrogram: centre trimming, and ``length`` shorter than the
+    signal (truncation) or longer (zero padding). Within 1e-5 where the
+    squared-window normalizer is >= 1e-2; at the edges, where it falls to
+    ~1e-10 and divides the products' rounding up, within 1e-3 (the ISTFT
+    quirk of ROADMAP §C). ``istft_np`` is ``istft`` on the CPU."""
+    S, x = _spectrogram(center)
+    cj, ct = jstft.StftConfig(center=center), tstft.StftConfig(center=center)
+    full = (S.shape[1] - 1) * ct.hop + ct.nfft - (ct.nfft if center else 0)
+    n = {None: None, "short": full - 777, "long": full + 500}[length]
+    jy = np.asarray(jstft.istft(jnp.asarray(S), cj, length=n))
+    jn = jstft.istft_np(S, cj, length=n)
+    ty = tstft.istft(torch.from_numpy(S), ct, length=n)
+    tn = tstft.istft_np(S, ct, length=n)
+    assert ty.dtype == torch.float32 and tn.dtype == np.float32
+    ty = ty.numpy()
+    assert ty.shape == jy.shape == tn.shape == jn.shape == (2, full if n is None else n)
+    wss = jstft._window_sumsquare("hann", ct.nfft, ct.hop, S.shape[1])
+    if center:
+        wss = wss[ct.nfft // 2:-(ct.nfft // 2)]
+    wss = np.pad(wss, (0, max(0, jy.shape[-1] - len(wss))))[:jy.shape[-1]]
+    good = wss >= 1e-2
+    for got, want in ((ty, jy), (ty, jn)):
+        np.testing.assert_allclose(got[:, good], want[:, good], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got, want, atol=1e-3)
+    np.testing.assert_array_equal(tn, ty)
+    if n is not None and n > full:  # librosa's zero padding
+        assert not np.any(ty[:, full:]) and not np.any(tn[:, full:])
+    # the longer signal reconstructs where the normalizer is full
+    m = min(x.shape[1], ty.shape[1])
+    ok = good[:m] & (np.arange(m) < x.shape[1] - ct.nfft)
+    np.testing.assert_allclose(ty[0, :m][ok], x[0, :m][ok], atol=1e-4)
+
+
+def test_istft_rejects_bad_bins_and_keeps_the_tiny_guard():
+    """Both copies raise on a bin count other than nfft / 2 + 1; with one
+    frame and ``center`` off the normalizer is 0 at the first sample, which
+    the tiny-threshold guard leaves undivided (0 there, not NaN), as JAX's."""
+    cfg = tstft.StftConfig(center=False)
+    rng = np.random.default_rng(4)
+    S = (rng.standard_normal((1, 513)) + 1j * rng.standard_normal((1, 513))).astype(np.complex64)
+    ty = tstft.istft(torch.from_numpy(S), cfg).numpy()
+    tn = tstft.istft_np(S, cfg)
+    jy = np.asarray(jstft.istft(jnp.asarray(S), jstft.StftConfig(center=False)))
+    assert np.isfinite(ty).all() and np.isfinite(tn).all() and ty[0] == tn[0] == jy[0] == 0.0
+    # the normalizer divides by down to ~1e-10 here: the values reach ~1e4
+    np.testing.assert_allclose(ty, jy, rtol=1e-5, atol=1e-3)
+    bad = np.ascontiguousarray(S[:, :512])
+    with pytest.raises(ValueError, match="513 bins"):
+        tstft.istft(torch.from_numpy(bad), cfg)
+    with pytest.raises(ValueError, match="513 bins"):
+        tstft.istft_np(bad, cfg)
