@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dvae_tpu_torch import tracing
 from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped
 from dvae_tpu_torch.ops.stft_power import power_spectrogram
 
@@ -45,16 +46,17 @@ def self_soft_labels(model, wavs, stft_cfg: StftConfig, y_dim: int, method: str,
     ``EnhancerConfig``: a std_norm model's classifier sees
     (x2 - mean) / (std + norm_eps). Returns one (n_frames, y_dim) array per
     utterance, n_frames its ``n_stft_frames_clamped``."""
-    dev = next(model.parameters()).device
-    ns = [n_stft_frames_clamped(len(w), stft_cfg) for w in wavs]
-    t_max = max(len(w) for w in wavs)
-    batch = np.stack([np.pad(np.asarray(w, np.float32), (0, t_max - len(w))) for w in wavs])
-    x2 = power_spectrogram(torch.from_numpy(batch).to(dev), stft_cfg)  # (B, n, bins)
-    if norm is not None:
-        mean, std = (torch.as_tensor(np.asarray(a, np.float32).reshape(-1), device=dev)
-                     for a in norm)
-        x2 = (x2 - mean) / (std + norm_eps)
-    b, n, f = x2.shape
-    y = getattr(model, method)(x2.reshape(b * n, f))
-    y = y.float().cpu().numpy().reshape(b, n, -1)
-    return [y[i, :ns[i]].reshape(-1, y_dim) for i in range(len(wavs))]
+    with tracing.span("labels", utterances=len(wavs)):
+        dev = next(model.parameters()).device
+        ns = [n_stft_frames_clamped(len(w), stft_cfg) for w in wavs]
+        t_max = max(len(w) for w in wavs)
+        batch = np.stack([np.pad(np.asarray(w, np.float32), (0, t_max - len(w))) for w in wavs])
+        x2 = power_spectrogram(torch.from_numpy(batch).to(dev), stft_cfg)  # (B, n, bins)
+        if norm is not None:
+            mean, std = (torch.as_tensor(np.asarray(a, np.float32).reshape(-1), device=dev)
+                         for a in norm)
+            x2 = (x2 - mean) / (std + norm_eps)
+        b, n, f = x2.shape
+        y = getattr(model, method)(x2.reshape(b * n, f))
+        y = y.float().cpu().numpy().reshape(b, n, -1)
+        return [y[i, :ns[i]].reshape(-1, y_dim) for i in range(len(wavs))]

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dvae_tpu_torch import tracing
 from dvae_tpu_torch.enhance.mh_chain import (
     decoder_reference,
     fold_conditioning,
@@ -199,11 +200,12 @@ def _wf_expectation(mats, x2_r, mask, z, w, h, g, gen, cfg: McemConfig):
     is in numerator and denominator, so WFs + WFn = 1 on valid frames.
     Returns ``(wfs, wfn, z)``."""
     (b, n), f = mask.shape, x2_r.shape[-1]
-    zf, wfs, wfn = _segment(mats, x2_r, compute_vb(w, h), g, z, gen,
-                            cfg.burnin_wf, cfg.nsamples_wf, cfg, True)
-    m3 = mask[:, :, None]
-    return (wfs.reshape(b, n, f) / cfg.nsamples_wf * m3,
-            wfn.reshape(b, n, f) / cfg.nsamples_wf * m3, zf.reshape(b, n, -1))
+    with tracing.span("mcem.wiener"):
+        zf, wfs, wfn = _segment(mats, x2_r, compute_vb(w, h), g, z, gen,
+                                cfg.burnin_wf, cfg.nsamples_wf, cfg, True)
+        m3 = mask[:, :, None]
+        return (wfs.reshape(b, n, f) / cfg.nsamples_wf * m3,
+                wfn.reshape(b, n, f) / cfg.nsamples_wf * m3, zf.reshape(b, n, -1))
 
 
 def run_mcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
@@ -228,13 +230,16 @@ def run_mcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
     x2_r = _stats(x2.reshape(b * n, f), cfg)  # the chain's plane, rounded once per run
     z = z_init.to(torch.float32)
     costs = []
-    for _ in range(cfg.niter):
-        zf, vs = _segment(mats, x2_r, _stats(compute_vb(w, h), cfg), g, z, g_em,
-                          cfg.burnin_e_step, cfg.nsamples_e_step, cfg, False)
-        z = zf.reshape(b, n, -1)
-        vs = vs.reshape(cfg.nsamples_e_step, b, n, f)
-        w, h, g, vb = nmf_m_step(x2, vs, w, h, g, mask, cfg.eps)
-        costs.append(_masked_cost(x2, vs, vb, g, mask))
+    for it in range(cfg.niter):
+        with tracing.span("mcem.estep", it=it):
+            zf, vs = _segment(mats, x2_r, _stats(compute_vb(w, h), cfg), g, z, g_em,
+                              cfg.burnin_e_step, cfg.nsamples_e_step, cfg, False)
+            z = zf.reshape(b, n, -1)
+            vs = vs.reshape(cfg.nsamples_e_step, b, n, f)
+        with tracing.span("mcem.mstep", it=it):
+            w, h, g, vb = nmf_m_step(x2, vs, w, h, g, mask, cfg.eps)
+        with tracing.span("mcem.cost", it=it):
+            costs.append(_masked_cost(x2, vs, vb, g, mask))
     wfs, wfn, z = _wf_expectation(mats, x2_r, mask, z, w, h, g, g_wf, cfg)
     return McemResult(wfs, wfn, _stack(costs, x2), z, w, h, g)
 
@@ -278,16 +283,20 @@ def run_pmcem(mats, x2: torch.Tensor, z_init: torch.Tensor, mask: torch.Tensor,
     eps[0] = 0.0
     z = z_init.to(torch.float32)[None] + math.sqrt(cfg.var_rw) * eps
     costs = []
-    for _ in range(cfg.niter):
-        z, vs = _segment(mats, x2_r, *planes(w, h, g), z, g_em, cfg.pmcem_steps - 1, 1,
-                         cfg, False)
-        vs = vs.reshape(r, b, n, f)
-        w, h, g, vb = nmf_m_step(x2, vs, w, h, g, mask, cfg.eps)
-        costs.append(_masked_cost(x2, vs, vb, g, mask))
+    for it in range(cfg.niter):
+        with tracing.span("mcem.estep", it=it):
+            z, vs = _segment(mats, x2_r, *planes(w, h, g), z, g_em, cfg.pmcem_steps - 1, 1,
+                             cfg, False)
+            vs = vs.reshape(r, b, n, f)
+        with tracing.span("mcem.mstep", it=it):
+            w, h, g, vb = nmf_m_step(x2, vs, w, h, g, mask, cfg.eps)
+        with tracing.span("mcem.cost", it=it):
+            costs.append(_masked_cost(x2, vs, vb, g, mask))
 
     n_collect = -(-cfg.nsamples_wf // r)
-    z, wfs, wfn = _segment(mats, x2_r, *planes(w, h, g, True), z, g_wf, cfg.pmcem_wf_burn,
-                           n_collect, cfg, True)
+    with tracing.span("mcem.wiener"):
+        z, wfs, wfn = _segment(mats, x2_r, *planes(w, h, g, True), z, g_wf, cfg.pmcem_wf_burn,
+                               n_collect, cfg, True)
     n_avg, m3 = n_collect * r, mask[:, :, None]
     return McemResult(wfs.reshape(r, b, n, f).sum(0) / n_avg * m3,
                       wfn.reshape(r, b, n, f).sum(0) / n_avg * m3,

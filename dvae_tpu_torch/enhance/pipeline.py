@@ -39,6 +39,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from dvae_tpu_torch import tracing
 from dvae_tpu_torch.device import resolve_device
 from dvae_tpu_torch.enhance.mcem import (
     McemConfig,
@@ -78,6 +79,17 @@ def _quantize_pcm16(x: torch.Tensor):
     scale = (peak / 32767.0).to(torch.float32)
     q = torch.round(x / scale[:, None]).clamp(-32768, 32767).to(torch.int16)
     return q, scale
+
+
+class _Handle(NamedTuple):
+    """One dispatched batch: each shard's device outputs, each shard's
+    count of valid cells, the host's side of finishing (lengths, and the
+    inputs and frame coverage of the Wiener partition) and the batch's
+    sequence number on its ``Enhancer``."""
+    shards: list
+    cost_w: list
+    host: tuple | list
+    batch: int
 
 
 class _Replica(NamedTuple):
@@ -168,6 +180,7 @@ class Enhancer:
         self._devices = devices
         self._replicate()
         self.last_cost = None
+        self._batches = 0  # batches dispatched: the spans' batch ids
 
     def _replicate(self) -> None:
         """The weights, decoder matrices and input statistics on each device
@@ -291,53 +304,73 @@ class Enhancer:
         elif clean_wavs is None:
             raise ValueError(f"ablation={cfg.ablation} needs the clean waveforms "
                              "(clean_wavs=...) to encode the clean latent")
-        n_real = len(wavs)
-        parts = len(self._devices)
-        if n_real % parts:
-            # pad to a multiple of the mesh with 1-frame silent utterances,
-            # dropped again in _collect
-            pad = parts - n_real % parts
-            silent = np.zeros(cfg.stft.nfft, np.float32)
-            wavs = list(wavs) + [silent] * pad
-            if clean_wavs is not None:
-                clean_wavs = list(clean_wavs) + [silent] * pad
-            if ys is not None:
-                ys = list(ys) + [np.zeros((1, np.asarray(ys[0]).shape[-1]), np.float32)] * pad
-            if max_frames is not None:
-                max_frames = list(max_frames) + [1] * pad
-        xw, x_scale, sw, s_scale, mask, y, n_pad, frames = self._prepare(
-            wavs, ys, max_frames, clean_wavs)
-        seed = 0 if seed is None else seed
-        nmf_init = None
-        if self.mesh is not None:
-            # the global batch's NMF init, drawn as the unsharded run draws it
-            nmf_init = draw_nmf_init(seed, len(wavs), n_pad, cfg.stft.nfft // 2 + 1, cfg.mcem,
-                                     self.device)
-        blocks = _blocks(len(wavs), parts)
-        shards = []
-        for i, (dev, rows) in enumerate(zip(self._devices, blocks)):
-            wire = [None if t is None else t[rows].to(dev)
-                    for t in (xw, x_scale, sw, s_scale, mask, y)]
-            init = None if nmf_init is None else tuple(t[rows].to(dev) for t in nmf_init)
-            shards.append(self._core(self._reps[dev], *wire,
-                                     seed if i == 0 else fold_seed(seed, SHARD_STREAM, i),
-                                     n_pad, init))
-        counts = mask.sum(1) * (cfg.stft.nfft // 2 + 1)
-        cost_w = [counts[rows].sum().clamp_min(1.0) for rows in blocks]
-        lengths = [len(w) for w in wavs[:n_real]]
-        if cfg.noise_from_partition:
-            cover = [samples_for_frames(fi, cfg.stft) for fi in frames[:n_real]]
-            return shards, cost_w, (lengths, [np.asarray(w, np.float32) for w in wavs[:n_real]],
-                                    cover)
-        return shards, cost_w, lengths
+        batch = self._batches
+        self._batches += 1
+        with tracing.span("enhancer.dispatch", batch=batch, utterances=len(wavs)) as sp:
+            n_real = len(wavs)
+            parts = len(self._devices)
+            with tracing.span("enhancer.prepare"):
+                if n_real % parts:
+                    # pad to a multiple of the mesh with 1-frame silent utterances,
+                    # dropped again in _collect
+                    pad = parts - n_real % parts
+                    silent = np.zeros(cfg.stft.nfft, np.float32)
+                    wavs = list(wavs) + [silent] * pad
+                    if clean_wavs is not None:
+                        clean_wavs = list(clean_wavs) + [silent] * pad
+                    if ys is not None:
+                        ys = list(ys) + [np.zeros((1, np.asarray(ys[0]).shape[-1]),
+                                                  np.float32)] * pad
+                    if max_frames is not None:
+                        max_frames = list(max_frames) + [1] * pad
+                xw, x_scale, sw, s_scale, mask, y, n_pad, frames = self._prepare(
+                    wavs, ys, max_frames, clean_wavs)
+            sp.set(n_pad=n_pad)
+            seed = 0 if seed is None else seed
+            nmf_init = None
+            if self.mesh is not None:
+                # the global batch's NMF init, drawn as the unsharded run draws it
+                with tracing.span("enhancer.upload"):
+                    nmf_init = draw_nmf_init(seed, len(wavs), n_pad, cfg.stft.nfft // 2 + 1,
+                                             cfg.mcem, self.device)
+            blocks = _blocks(len(wavs), parts)
+            shards = []
+            for i, (dev, rows) in enumerate(zip(self._devices, blocks)):
+                # a copy from pageable memory waits for the work queued before it
+                with tracing.span("enhancer.upload"):
+                    wire = [None if t is None else t[rows].to(dev)
+                            for t in (xw, x_scale, sw, s_scale, mask, y)]
+                    init = None if nmf_init is None else tuple(t[rows].to(dev) for t in nmf_init)
+                with tracing.span("enhancer.enqueue"):
+                    shards.append(self._core(self._reps[dev], *wire,
+                                             seed if i == 0 else fold_seed(seed, SHARD_STREAM, i),
+                                             n_pad, init))
+            counts = mask.sum(1) * (cfg.stft.nfft // 2 + 1)
+            cost_w = [counts[rows].sum().clamp_min(1.0) for rows in blocks]
+            lengths = [len(w) for w in wavs[:n_real]]
+            if cfg.noise_from_partition:
+                cover = [samples_for_frames(fi, cfg.stft) for fi in frames[:n_real]]
+                return _Handle(shards, cost_w, (lengths, [np.asarray(w, np.float32)
+                                                          for w in wavs[:n_real]], cover), batch)
+            return _Handle(shards, cost_w, lengths, batch)
 
-    def _collect(self, handle) -> list[tuple[np.ndarray, np.ndarray]]:
+    def _collect(self, handle: _Handle) -> list[tuple[np.ndarray, np.ndarray]]:
         """Pull a dispatched batch back to the host (the shards in order)
         and finalize lengths."""
-        shards, cost_w, host = handle
+        with tracing.span("enhancer.collect", batch=handle.batch):
+            with tracing.span("enhancer.collect.wait"):
+                # each copy waits for the work queued on the stream before it
+                shards = [[t.cpu() for t in sh] for sh in handle.shards]
+            with tracing.span("enhancer.collect.finish"):
+                return self._finish(shards, handle.cost_w, handle.host)
+
+    def _finish(self, shards, cost_w, host) -> list[tuple[np.ndarray, np.ndarray]]:
+        """:meth:`_collect` on the host: the shards' outputs copied back
+        cut to their lengths, the noise by the Wiener partition and the
+        cost."""
 
         def gather(j):
-            return np.concatenate([sh[j].cpu().numpy() for sh in shards])
+            return np.concatenate([sh[j].numpy() for sh in shards])
 
         s_all = gather(0).astype(np.float32) * gather(1)[:, None]
         if self.cfg.noise_from_partition:
@@ -361,12 +394,12 @@ class Enhancer:
                 n[:t_have] = n_all[i, :t_have]
             out.append((s, n))
         if len(shards) == 1:
-            self.last_cost = shards[0][-1].cpu().numpy()
+            self.last_cost = shards[0][-1].numpy()
         else:
             # the masked mean over the whole batch: each shard's mean
             # weighted by its count of valid cells
             w = torch.stack(cost_w).double()
-            costs = torch.stack([sh[-1].cpu().double() for sh in shards])
+            costs = torch.stack([sh[-1].double() for sh in shards])
             self.last_cost = ((costs * w[:, None]).sum(0) / w.sum()).float().numpy()
         return out
 

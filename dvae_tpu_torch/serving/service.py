@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 
+from dvae_tpu_torch import tracing
 from dvae_tpu_torch.enhance.labeling import classify_method_of, constant_labels, self_soft_labels
 from dvae_tpu_torch.enhance.mcem import fold_seed
 from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
@@ -121,6 +122,7 @@ class EnhanceService(_ChunkedStreamingMixin):
         before drain() reports the service empty. ``bypass_drain`` is for
         the remaining chunks of an already started chunked request."""
         item = _Item(wav, y_source, count)
+        item.admitted = tracing.clock()
         with self._lock:
             if self._draining and not bypass_drain:
                 raise ServiceOverloaded(
@@ -281,7 +283,7 @@ class EnhanceService(_ChunkedStreamingMixin):
         the device work of the last. With no follow-up traffic the
         in-flight batch is collected at once. ``cfg.pipeline_dispatch=False``
         collects each batch before gathering the next."""
-        pending = None  # (live_items, dispatch_handle, t0) in flight
+        pending = None  # (live_items, dispatch_handle, t0, batch id) in flight
         while not self._stop.is_set():
             # reloads apply between dispatches: a pending batch already
             # bound the old weights' device work
@@ -299,7 +301,10 @@ class EnhanceService(_ChunkedStreamingMixin):
 
     def _gather_batch(self, block: bool) -> list[_Item]:
         """Drain up to ``batch_size`` live items (the micro-batch window).
-        ``block=False`` (a batch is in flight) polls instead of waiting."""
+        ``block=False`` (a batch is in flight) polls instead of waiting.
+        Records the gather's span and each item's wait in the queue under
+        the id of the batch the worker dispatches next."""
+        t0 = tracing.clock()
         try:
             first = self._q.get(timeout=0.2) if block else self._q.get_nowait()
         except queue.Empty:
@@ -320,64 +325,74 @@ class EnhanceService(_ChunkedStreamingMixin):
             with self._lock:
                 self._unfinished -= len(dropped)
                 self._warmup_inflight -= sum(1 for it in dropped if not it.count)
+        if live and t0:
+            t1 = tracing.clock()
+            for it in live:
+                tracing.record("service.queue", it.admitted, t1, batch=self._batch_counter)
+            tracing.record("service.gather", t0, t1, batch=self._batch_counter)
         return live
 
     def _dispatch_batch(self, batch: list[_Item]):
         """Label, pad and dispatch one batch; returns the in-flight
-        (batch, handle, t0), or None if dispatch itself failed (the
-        waiters are answered with the error here)."""
-        t0 = time.monotonic()
-        try:
-            wavs = [it.wav for it in batch]
-            ys = self._labels_for_batch(batch) if self.conditional else None
-            # pad to the fixed batch size with 1-frame silence: every batch
-            # of a bucket has the same shapes and the same composition
-            n_pad = self.cfg.batch_size - len(batch)
-            if n_pad > 0:
-                pad_wavs, pad_ys = self._pad_fillers(n_pad)
-                wavs = wavs + pad_wavs
-                if ys is not None:
-                    ys = ys + pad_ys
-            with self._lock:
-                key_idx = self._batch_counter
-                self._batch_counter += 1
-            handle = self.enhancer.dispatch(wavs, ys, seed=fold_seed(self.cfg.seed, key_idx))
-            return batch, handle, t0
-        except Exception as e:
-            self._fail_batch(batch, e)
-            with self._lock:
-                self._unfinished -= len(batch)
-                self._warmup_inflight -= sum(1 for it in batch if not it.count)
-            return None
+        (batch, handle, t0 in ns, batch id), or None if dispatch itself
+        failed (the waiters are answered with the error here)."""
+        t0 = time.time_ns()
+        with tracing.span("service.dispatch", t0) as sp:
+            try:
+                wavs = [it.wav for it in batch]
+                ys = self._labels_for_batch(batch) if self.conditional else None
+                # pad to the fixed batch size with 1-frame silence: every batch
+                # of a bucket has the same shapes and the same composition
+                n_pad = self.cfg.batch_size - len(batch)
+                if n_pad > 0:
+                    pad_wavs, pad_ys = self._pad_fillers(n_pad)
+                    wavs = wavs + pad_wavs
+                    if ys is not None:
+                        ys = ys + pad_ys
+                with self._lock:
+                    key_idx = self._batch_counter
+                    self._batch_counter += 1
+                sp.set(batch=key_idx)
+                handle = self.enhancer.dispatch(wavs, ys, seed=fold_seed(self.cfg.seed, key_idx))
+                return batch, handle, t0, key_idx
+            except Exception as e:
+                self._fail_batch(batch, e)
+                with self._lock:
+                    self._unfinished -= len(batch)
+                    self._warmup_inflight -= sum(1 for it in batch if not it.count)
+                return None
 
-    def _finish_batch(self, batch: list[_Item], handle, t0: float) -> None:
+    def _finish_batch(self, batch: list[_Item], handle, t0: int, key_idx: int) -> None:
         """Collect a dispatched batch's results and answer its waiters.
         ``busy_seconds`` spans dispatch start to results fetched; under
         pipelining consecutive spans overlap by design."""
-        try:
-            out = self.enhancer.collect(handle)
-            for it, (s, n) in zip(batch, out):
-                it.result = (s, n)
-                it.done.set()
-            # warmup batches (count=False) go to warmup_seconds, never to
-            # the serving rtf/throughput counters; a mixed batch's span
-            # counts as warmup too
-            counted = [it for it in batch if it.count]
-            span = time.monotonic() - t0
-            with self._lock:
-                if counted:
-                    self.stats["batches"] += 1
-                    self.stats["utterances"] += len(counted)
-                if len(counted) == len(batch):
-                    self.stats["busy_seconds"] += span
-                else:
-                    self.stats["warmup_seconds"] += span
-        except Exception as e:
-            self._fail_batch(batch, e)
-        finally:
-            with self._lock:
-                self._unfinished -= len(batch)
-                self._warmup_inflight -= sum(1 for it in batch if not it.count)
+        with tracing.span("service.finish", batch=key_idx) as sp:
+            try:
+                out = self.enhancer.collect(handle)
+                for it, (s, n) in zip(batch, out):
+                    it.result = (s, n)
+                    it.done.set()
+                # warmup batches (count=False) go to warmup_seconds, never to
+                # the serving rtf/throughput counters; a mixed batch's span
+                # counts as warmup too
+                counted = [it for it in batch if it.count]
+                t1 = time.time_ns()
+                sp.end_at(t1)
+                span = (t1 - t0) / 1e9
+                with self._lock:
+                    if counted:
+                        self.stats["batches"] += 1
+                        self.stats["utterances"] += len(counted)
+                    if len(counted) == len(batch):
+                        self.stats["busy_seconds"] += span
+                    else:
+                        self.stats["warmup_seconds"] += span
+            except Exception as e:
+                self._fail_batch(batch, e)
+            finally:
+                with self._lock:
+                    self._unfinished -= len(batch)
+                    self._warmup_inflight -= sum(1 for it in batch if not it.count)
 
     def _fail_batch(self, batch: list[_Item], e: Exception) -> None:
         """Answer every waiter of a failed batch with an EnhancementError

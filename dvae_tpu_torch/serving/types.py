@@ -46,7 +46,7 @@ class ServeConfig:
 
 class _Item:
     __slots__ = ("wav", "y_source", "done", "result", "error", "count",
-                 "abandoned")
+                 "abandoned", "admitted")
 
     def __init__(self, wav, y_source, count=True):
         self.wav = wav
@@ -56,3 +56,4 @@ class _Item:
         self.error = None
         self.count = count        # False for warmup traffic (stats-exempt)
         self.abandoned = False    # set by a timed-out waiter; worker drops it
+        self.admitted = 0         # tracing.clock() at admission: its queue span
