@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero:
    printed without a limit;
 3. the M1 ``Enhancer`` end to end on B = 32 synthetic ~5.1 s utterances at
    the full ``McemConfig()`` budget: the bf16 body's launch count must rise
-   by exactly niter + 1, outputs must be finite; the same with
+   by exactly niter + 1, the fused NMF M-step's by 3 niter (its three
+   kernels per EM iteration), outputs must be finite; the same with
    ``fast_decoder=False`` through the f32 body; then, in each precision,
    the frozen-chain config runs once through the kernel and once through
    the plain chain, and masks and waveforms must agree, with the Wiener
@@ -24,7 +25,14 @@ Phases, in order; any failure exits non-zero:
 4. times (CUDA events, warm): each body and its plain chain per E-step and
    WF segment at main-path shape, the NMF M-step, and the whole
    ``enhance_batch`` (default config, so the bf16 body), each with the
-   card's name and power limit;
+   card's name and power limit. The M-step (``csrc/nmf_mstep.cu``, three
+   launches a call) is first held against ``nmf_m_step_reference`` on the
+   same card tensors at the main path's shapes (R = nsamples_e_step, B 32
+   and the served 8, N as ``enhance_batch`` padded the phase-3 batch, F
+   513, K nmf_rank) on bf16 and f32 samples: relative L2 per utterance of
+   W, H, g and Vb within 1e-4 (bf16; an R-sum may round to the other bf16
+   neighbour) and 1e-5 (f32); then each is timed beside the plain body and
+   ``m_step_work``'s bound;
 5. the STFT power kernel against its plain version on the card: power and
    log epilogues, ``center`` off and on, frame counts off any block's
    frames, the end-pad quirk, a short centered signal, a silent row (exactly
@@ -412,12 +420,14 @@ def chain_bound_ms(work, fast):
 def m_step_work(r, b, n, f, vs_bytes):
     """(flops, bytes) the least one NMF M-step (``enhance/nmf.py::nmf_m_step``)
     needs with R = ``r`` samples of (B, N, F) = (``b``, ``n``, ``f``) stored
-    at ``vs_bytes`` a value: each of its three stages (W, H, g) reads the
-    samples once and x2 once; per sample element the W and H stages take
+    at ``vs_bytes`` a value, as ``benchmark/work.py`` counts it for
+    ``mstep_roofline``: the samples and x2 (f32) read once, whatever an
+    implementation reads again (one utterance's samples fit in L2), and the
+    f32 Vb written once; per sample element the W and H stages take
     g Vs + Vb, the floor, 1/Vx, its square and two sums (7 operations
     each), the g stage those and x2 Vs, two products and two sums (9)."""
     elems = r * b * n * f
-    return 23 * elems, 3 * (elems * vs_bytes + 4 * b * n * f)
+    return 23 * elems, elems * vs_bytes + 8 * b * n * f
 
 
 def stft_power_work(rows, t_total, nfft, n_bins, log_out):
@@ -4561,6 +4571,60 @@ def any_decoder_phase(wavs, batch, frames, cuda_ms, plain_chain, agree, tag: str
     return entries
 
 
+def m_step_phase(x2b, maskb, mc, cuda_ms, tag: str, launches: int) -> dict:
+    """Phase 4's M-step: the fused kernel (``csrc/nmf_mstep.cu``) against
+    ``nmf_m_step_reference`` on the same card tensors at the main path's
+    shapes (R = ``mc.nsamples_e_step``, B of the phase-3 batch and the
+    served 8, its first utterances; N as ``enhance_batch`` padded it; K =
+    ``mc.nmf_rank``), on bf16 and f32 samples: three launches a call, and
+    the relative L2 per utterance of W, H, g and Vb within 1e-4 (bf16) or
+    1e-5 (f32); then each call timed (CUDA events) beside the plain body
+    and ``m_step_work``'s bound. Returns the kernels-line entry of the
+    offline cells' call (the whole batch, bf16 samples) with ``launches``,
+    the main path's count per ``enhance_batch``."""
+    import torch
+
+    from dvae_tpu_torch.enhance import nmf
+
+    def rel_l2(a, b):
+        a, b = a.double().flatten(1), b.double().flatten(1)
+        d, n = (a - b).norm(dim=1), b.norm(dim=1)
+        return float(torch.where(n > 0, d / n.clamp_min(1e-300), d).max())
+
+    dev = x2b.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    r, (b_all, n, f) = mc.nsamples_e_step, x2b.shape
+    got = {}
+    for b in (b_all, 8):
+        x2, mask = x2b[:b].contiguous(), maskb[:b].contiguous()
+        w, h, g = nmf.init_nmf(gen, b, n, f, mc.nmf_rank, mc.eps, device=dev)
+        for dtype, tol in ((torch.bfloat16, 1e-4), (torch.float32, 1e-5)):
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            vs = (torch.rand((r, b, n, f), generator=gen, device=dev) + 0.05).to(dtype)
+            args = (x2, vs, w, h, g, mask, mc.eps)
+            before = nmf.launches
+            kernel = nmf.nmf_m_step(*args)
+            per_call = nmf.launches - before
+            plain = nmf.nmf_m_step_reference(*args)
+            rel = max(rel_l2(a, p) for a, p in zip(kernel, plain))
+            abs_err = max(float((a - p).abs().max()) for a, p in zip(kernel, plain))
+            check(per_call == 3, f"M-step B={b} {name}: {per_call} kernel launches, expected 3")
+            check(all(bool(torch.isfinite(a).all()) for a in kernel) and rel <= tol,
+                  f"M-step B={b} {name}: kernel vs plain, relative L2 {rel:.3e} (limit {tol:g})")
+            k_ms = cuda_ms(lambda: nmf.nmf_m_step(*args), reps=30, warm=2)
+            p_ms = cuda_ms(lambda: nmf.nmf_m_step_reference(*args), reps=5)
+            b_ms, b_by = bound_ms(*m_step_work(r, b, n, f, vs.element_size()))
+            log(f"phase 4: nmf_m_step R={r} B={b} N={n} F={f} K={mc.nmf_rank} on {name} "
+                f"samples: relative L2 {rel:.3e} (limit {tol:g}), max abs err {abs_err:.3e}; "
+                f"kernel {k_ms:.4f} ms ({per_call} launches), plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by}, kernel at {100 * b_ms / k_ms:.2f}% of bound {tag}")
+            got[b, name] = {"max_abs_err": abs_err, "max_rel_l2": rel, "ms": k_ms,
+                            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+            del vs, args, kernel, plain
+    return {"name": "nmf_mstep", "route": "cuda", "source": "dvae_tpu_torch/csrc/nmf_mstep.cu",
+            "replaces": None, "launches": launches, **got[b_all, "bf16"], "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -4568,7 +4632,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from dvae_tpu_torch.enhance import mcem, mh_chain
+    from dvae_tpu_torch.enhance import mcem, mh_chain, nmf
     from dvae_tpu_torch.enhance.mcem import McemConfig
     from dvae_tpu_torch.enhance.mh_chain import (
         extract_decoder_mlp,
@@ -4576,7 +4640,7 @@ def main() -> int:
         mh_chain_reference,
         run_mh_chain,
     )
-    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf, nmf_m_step
+    from dvae_tpu_torch.enhance.nmf import compute_vb, init_nmf
     from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
     from dvae_tpu_torch.models import VAE
     from dvae_tpu_torch.models.blocks import init_xavier_
@@ -4699,17 +4763,20 @@ def main() -> int:
     cfg = EnhancerConfig()
     check(cfg.mcem.fast_decoder, "the default config runs the bf16 body")
     enh = Enhancer(model, cfg)
-    mh_chain.launches = mh_chain.launches_mma = 0
+    mh_chain.launches = mh_chain.launches_mma = nmf.launches = 0
     t0 = time.perf_counter()
     out = enh.enhance_batch(wavs, seed=SEED)
     t_first = time.perf_counter() - t0
-    launches, launches_mma = mh_chain.launches, mh_chain.launches_mma
+    launches, launches_mma, launches_m = mh_chain.launches, mh_chain.launches_mma, nmf.launches
     want = cfg.mcem.niter + 1
     log(f"phase 3: enhance_batch B={B} ran {launches_mma} launches of the bf16 "
         f"tensor-core body, {launches} mh_chain launches in all (expected niter + 1 = "
-        f"{want}), first call {t_first:.3f} s")
+        f"{want}), {launches_m} launches of the fused M-step (expected 3 niter = "
+        f"{3 * cfg.mcem.niter}), first call {t_first:.3f} s")
     check(launches_mma == launches == want, f"{launches_mma} bf16 body launches of "
           f"{launches}, expected {want}")
+    check(launches_m == 3 * cfg.mcem.niter, f"{launches_m} M-step kernel launches, expected "
+          f"{3 * cfg.mcem.niter}")
     check(len(out) == B and all(len(s) == len(x) == len(n) for (s, n), x in zip(out, wavs)),
           "output count and lengths")
     check(all(np.isfinite(s).all() and np.isfinite(n).all() for s, n in out), "finite outputs")
@@ -4807,9 +4874,8 @@ def main() -> int:
             f"{max_abs[fast]:.3e}, " + agree(sk, sr, fast, 1e-5, f"{name} frozen segment at "
                                              "main-path shape"))
 
-    vs_s = torch.rand((mc.nsamples_e_step, B, n_pad, f), generator=gen, device=dev) + 0.05
-    m_ms = cuda_ms(lambda: nmf_m_step(x2b, vs_s, w, h, g, maskb, mc.eps), reps=5)
-    log(f"phase 4: nmf_m_step R={mc.nsamples_e_step} B={B} N={n_pad}: {m_ms:.4f} ms {tag}")
+    m_step_entry = m_step_phase(x2b, maskb, mc, cuda_ms, tag, launches_m)
+    m_ms = m_step_entry["ms"]
 
     walls = []
     for _ in range(3):
@@ -4875,7 +4941,7 @@ def main() -> int:
 
     log(json.dumps({"kernels": [m1_chain_entry("mh_chain", True, launches_mma),
                                 m1_chain_entry("mh_chain_f32", False, launches_f32),
-                                *stft_entries, *cond_entries, *engine_entries,
+                                m_step_entry, *stft_entries, *cond_entries, *engine_entries,
                                 *serving_entries, *labelled_entries, *cli_entries,
                                 *audio_entries, *video_entries, *scoring_entries,
                                 *depth_entries, *parallel_entries, *fast_stats_entries,
