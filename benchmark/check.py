@@ -87,18 +87,21 @@ def _chain_mismatch_rows(z_c, z_r, vs_c, vs_r) -> torch.Tensor:
     return dz | dv
 
 
-def numbers(rec: dict, outputs: list, weights: dict, cfg: dict, ref, control: bool = False
-            ) -> dict:
+def numbers(rec: dict, outputs: list, weights: dict, cfg: dict, ref, control: bool = False,
+            side: dict | None = None, label_weights: dict | None = None) -> dict:
     """``{name: value}`` of the recorded dispatch ``rec``: the program's
     gaps to the reference, or with ``control`` the control's. ``outputs``
     holds the caller's (s_hat, n_hat) per recorded utterance (None for a
-    batch filler no caller waits for). A stage the record lacks reads
+    batch filler no caller waits for). A configuration whose labels come
+    from a label network of its own (``labels.source`` "net") also needs
+    that network's weights and ``side``, ``{input: [one per recorded
+    utterance]}`` (None for a filler). A stage the record lacks reads
     infinity."""
     with Float32Products(), torch.inference_mode():
-        return _numbers(rec, outputs, weights, cfg, ref, control)
+        return _numbers(rec, outputs, weights, cfg, ref, control, side or {}, label_weights)
 
 
-def _numbers(rec, outputs, weights, cfg, ref, control):
+def _numbers(rec, outputs, weights, cfg, ref, control, side, label_weights):
     st = dsp.Stft(**cfg["stft"])
     mc, enh = cfg["mcem"], cfg["enhancer"]
     fast = mc["fast_decoder"] and len(cfg["model"]["h_dim"]) == 2
@@ -132,20 +135,30 @@ def _numbers(rec, outputs, weights, cfg, ref, control):
         out["power_rel"] = inf
     else:
         out["power_rel"] = _valid_rel(pick(x2_of, x2_prog), x2_ref, frames)
-    # -- the encoder, from the program's power ----------------------------------
+    # -- the encoder, from the program's power (and, for an encoder that sees
+    # [x; y], the labels the engine got) ----------------------------------------
     x2_in = x2_prog if x2_prog.shape == x2_ref.shape else x2_ref
+    y_prog = ein["y"]
+    enc_dec = enh["y_mode"] == "enc_dec"
 
     def enc(prec):
+        if enc_dec:
+            return ref.encoder_mean(weights, cfg, x2_in, prec, y_prog.float())
         return ref.encoder_mean(weights, cfg, x2_in, prec)
 
     z_prog = ein["z"].float()
     out["encoder_rel"] = (_valid_rel(pick(enc, z_prog), enc(STATED), frames)
-                          if z_prog.shape[:2] == x2_in.shape[:2] else inf)
-    # -- the labels: B2's power of the raw mixtures, then the classifier ---------
-    y_prog = ein["y"]
+                          if z_prog.shape[:2] == x2_in.shape[:2]
+                          and not (enc_dec and y_prog is None) else inf)
+    # -- the labels: B2's power of the raw mixtures, then the classifier; or
+    # the configuration's own label network ---------------------------------------
     if cfg.get("labels"):
-        out.update(_label_numbers(rec, wavs, outputs, y_prog, frames, weights, cfg, ref, st,
-                                  dev, control))
+        if cfg["labels"]["source"] == "net":
+            out["labels_gap"] = _net_labels_gap(wavs, outputs, y_prog, frames, cfg, ref, side,
+                                                label_weights, control)
+        else:
+            out.update(_label_numbers(rec, wavs, outputs, y_prog, frames, weights, cfg, ref,
+                                      st, dev, control))
     # -- the chain segments and M-steps of the recorded iterations ---------------
     dec = ref.decoder(weights, cfg)
     y_rows = None if y_prog is None else y_prog.reshape(-1, y_prog.shape[-1]).float()
@@ -245,6 +258,29 @@ def _label_numbers(rec, wavs, outputs, y_prog, frames, weights, cfg, ref, st, de
         gaps.append(float((got - y_ref[row, :f_i]).abs().max()))
     out["labels_gap"] = _worst(gaps)
     return out
+
+
+def _net_labels_gap(wavs, outputs, y_prog, frames, cfg, ref, side, label_weights,
+                    control) -> float:
+    """The largest gap, over the valid frames of the callers' mixtures,
+    between the labels the engine got and the reference's label network
+    (``ref.net_labels``) on those mixtures and the side inputs paired with
+    them."""
+    live = [i for i, o in enumerate(outputs) if o is not None]
+    if y_prog is None or label_weights is None or not live:
+        return float("inf")
+    ws = [wavs[i] for i in live]
+    sd = {k: [v[i] for i in live] for k, v in side.items()}
+    want = ref.net_labels(label_weights, cfg, ws, sd, STATED)
+    got_c = ref.net_labels(label_weights, cfg, ws, sd, LOWERED) if control else None
+    gaps = []
+    for row, i in enumerate(live):
+        f_i = min(frames[i], y_prog.shape[1])
+        if want[row].shape[0] < f_i:
+            return float("inf")
+        got = got_c[row][:f_i] if control else y_prog[i, :f_i].float()
+        gaps.append(float((got - want[row][:f_i]).abs().max()))
+    return _worst(gaps)
 
 
 def _tail(wfs, xw, mask, frames, n_pad, wavs, outputs, st, lowered) -> float:

@@ -4,11 +4,13 @@ reading only the parameters of a ``traffic/<name>.json`` file.
 - ``batches``: a pool of mixtures cut into fixed batches, fed back to back
   through ``Enhancer.enhance_stream`` (the sweeps' path) and cycled until
   the window has passed; the conditioned configurations label each batch
-  with ``self_soft_labels`` first, inside the window.
+  first (``self_soft_labels``, or the configuration's label network on the
+  batch's mixtures and side inputs), inside the window.
 - ``open_loop``: requests sent at their due times through
-  ``EnhanceService.submit``, each from its own client thread; the gaps
-  between due times are the quantiles of an exponential draw at the
-  traffic's rate, in an order drawn from the seed.
+  ``EnhanceService.submit``, each from its own client thread with its
+  mixture's side inputs as keyword arguments; the gaps between due times
+  are the quantiles of an exponential draw at the traffic's rate, in an
+  order drawn from the seed.
 
 Either way the set of lengths (and of gaps) is the same for every seed, so
 a seed changes the audio and the order, never the work. The ``shuffled``
@@ -38,12 +40,22 @@ def ordered(values: np.ndarray, traffic: dict, rng: np.random.Generator) -> np.n
     raise ValueError(f"bad order {order!r}")
 
 
-def pool(traffic: dict, seed: int, device, fs: int) -> list[np.ndarray]:
+def pool(traffic: dict, seed: int, device, st, inputs=()) -> tuple[list, dict]:
     """The traffic's pool of mixtures: ``pool`` lengths on the uniform grid
-    of [min_s, max_s], in the traffic's order."""
-    lengths = synth.length_grid(traffic["pool"], traffic["min_s"], traffic["max_s"], fs)
+    of [min_s, max_s], in the traffic's order; and ``{input: [one per
+    mixture]}`` of the side ``inputs`` the configuration declares
+    ("video": :func:`synth.lip_video`, a crop per frame of the STFT
+    ``st``)."""
+    lengths = synth.length_grid(traffic["pool"], traffic["min_s"], traffic["max_s"], st.fs)
     lengths = ordered(lengths, traffic, np.random.default_rng([seed, 0]))
-    return synth.mixtures(lengths, seed, device, fs)
+    wavs, rates = synth.speech(lengths, seed, device, st.fs)
+    side = {}
+    for name in inputs:
+        if name != "video":
+            raise ValueError(f"bad side input {name!r}")
+        side[name] = synth.lip_video([st.frames(n) for n in lengths], rates, seed, device,
+                                     st.hop / st.fs, st.nfft / st.fs)
+    return wavs, side
 
 
 def due_times(traffic: dict, seconds: float, seed: int) -> np.ndarray:
@@ -61,22 +73,24 @@ def due_times(traffic: dict, seconds: float, seed: int) -> np.ndarray:
 class Batches:
     """The ``batches`` mode over an ``Enhancer``."""
 
-    def __init__(self, enhancer, traffic: dict, wavs, labeler=None):
+    def __init__(self, enhancer, traffic: dict, wavs, labeler=None, side=None):
         self.enh = enhancer
         b = int(traffic["batch"])
-        self.batches = [wavs[i:i + b] for i in range(0, len(wavs), b)]
-        self.labeler = labeler
+        starts = range(0, len(wavs), b)
+        self.batches = [wavs[i:i + b] for i in starts]
+        self.sides = [{k: v[i:i + b] for k, v in (side or {}).items()} for i in starts]
+        self.labeler = labeler  # (wavs, side inputs) -> per-utterance labels
 
     def warm(self, warm_enhancer) -> None:
         """One pass of every batch shape through ``warm_enhancer`` (the
         same program at a short EM budget), labels included."""
         seen = set()
-        for wavs in self.batches:
+        for wavs, side in zip(self.batches, self.sides):
             shape = (len(wavs), max(len(w) for w in wavs))
             if shape in seen:
                 continue
             seen.add(shape)
-            ys = self.labeler(wavs) if self.labeler else None
+            ys = self.labeler(wavs, side) if self.labeler else None
             warm_enhancer.enhance_batch(wavs, ys, seed=0)
 
     def run(self, seconds: float, seed: int, probe, min_batches: int = 1) -> dict:
@@ -93,7 +107,7 @@ class Batches:
                 ys = None
                 if self.labeler:
                     a = time.time_ns()
-                    ys = self.labeler(wavs)
+                    ys = self.labeler(wavs, self.sides[i % len(self.batches)])
                     probe.span("labels", a, time.time_ns())
                 fed.append(wavs)
                 yield wavs, ys, None
@@ -110,11 +124,12 @@ class Batches:
 class OpenLoop:
     """The ``open_loop`` mode over an ``EnhanceService``."""
 
-    def __init__(self, service, traffic: dict, requests, due):
+    def __init__(self, service, traffic: dict, requests, due, side=None):
         self.svc = service
         self.traffic = traffic
         self.requests = requests  # one array object per request
         self.due = due
+        self.side = side or [{}] * len(due)  # each request's side inputs, by name
 
     def run(self, seconds: float) -> dict:
         """Send every request at its due time; wait for all (at most
@@ -131,7 +146,7 @@ class OpenLoop:
 
         def client(i, wav):
             try:
-                answers[i] = self.svc.submit(wav, timeout=timeout)
+                answers[i] = self.svc.submit(wav, timeout=timeout, **self.side[i])
                 done[i] = time.monotonic()
             except Exception as e:  # counted as failed; never an answer
                 errors[i] = repr(e)

@@ -48,12 +48,12 @@ def main(argv=None) -> int:
     control = {}
     orig = check.numbers
 
-    def numbers(rec, outputs, w, cfg, ref, control_=False):
+    def numbers(rec, outputs, w, cfg, ref, control_=False, **kw):
         if args.control and not control.get("plant"):
-            control["nums"] = orig(rec, outputs, w, cfg, ref, True)
+            control["nums"] = orig(rec, outputs, w, cfg, ref, True, **kw)
             control["nums"].update({f"noise_z.{f}": check.noise_z(rec, cfg["model"]["z_dim"], f)
                                     for f in check.NOISE_FAULTS})
-        return orig(rec, outputs, w, cfg, ref)
+        return orig(rec, outputs, w, cfg, ref, **kw)
 
     check.numbers = numbers
     lat = {}

@@ -115,3 +115,19 @@ def enhance_flops(frames: int, mcem: dict, f: int, l: int, widths, nfft: int,
     mstep = 23 * mcem["nsamples_e_step"] * f * mcem["niter"]
     fft = 2 * 5 * nfft * math.log2(nfft)
     return float(frames * (steps * dec + enc + fold + clf + mstep + fft))
+
+
+def video_vad_flops(frames: int, hidden: int, layers: int, emb_dim: int, conv_features,
+                    side: int = 67) -> float:
+    """Model FLOPs of the video VAD network (``VideoVad``) over ``frames``
+    lip crops: each 3x3 stride-2 conv's multiply-adds at its SAME output
+    size, the projection, every LSTM layer's input and recurrent products
+    (4 gates) and the head; the gates' elementwise work is left out."""
+    flops, chans = 0, (1, *conv_features)
+    for c_in, c_out in zip(chans[:-1], chans[1:]):
+        side = -(-side // 2)
+        flops += 2 * side * side * c_out * c_in * 9
+    flops += 2 * side * side * chans[-1] * emb_dim
+    for k in range(layers):
+        flops += 2 * 4 * hidden * ((emb_dim if k == 0 else hidden) + hidden)
+    return float(frames * (flops + 2 * hidden))
