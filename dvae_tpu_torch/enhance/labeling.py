@@ -1,8 +1,9 @@
 """Labels for the conditional families when no oracle labels exist (port
 of ``dvae_tpu.enhance.labeling``).
 
-The constant ablations, or the model's own x -> y classifier run on the
-noisy mixture's power spectrogram (a serving run has no clean side). The
+The constant ablations, the model's own x -> y classifier run on the
+noisy mixture's power spectrogram (a serving run has no clean side), or a
+visual VAD network (``VideoVad``) over each utterance's lip video. The
 spectrogram is :func:`dvae_tpu_torch.ops.stft_power.power_spectrogram`:
 the STFT power kernel on a CUDA tensor, its plain version on a CPU one.
 """
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from dvae_tpu_torch import tracing
+from dvae_tpu_torch.models.video_vad import SIDE
 from dvae_tpu_torch.ops.stft import StftConfig, n_stft_frames_clamped
 from dvae_tpu_torch.ops.stft_power import power_spectrogram
 
@@ -60,3 +62,54 @@ def self_soft_labels(model, wavs, stft_cfg: StftConfig, y_dim: int, method: str,
         y = getattr(model, method)(x2.reshape(b * n, f))
         y = y.float().cpu().numpy().reshape(b, n, -1)
         return [y[i, :ns[i]].reshape(-1, y_dim) for i in range(len(wavs))]
+
+
+def check_clip(clip, n_frames: int) -> np.ndarray:
+    """``clip`` as a (frames, 67, 67) uint8 array of at least ``n_frames``
+    lip crops, one per STFT frame; ValueError otherwise."""
+    clip = np.asarray(clip)
+    if clip.dtype != np.uint8 or clip.ndim != 3 or clip.shape[1:] != (SIDE, SIDE):
+        raise ValueError(f"video must be (frames, {SIDE}, {SIDE}) uint8, got "
+                         f"{clip.shape} {clip.dtype}")
+    if len(clip) < n_frames:
+        raise ValueError(f"video has {len(clip)} frames, the audio {n_frames}")
+    return clip
+
+
+@torch.inference_mode()
+def video_vad_labels(net, wavs, side: dict, stft_cfg: StftConfig, stats: dict | None,
+                     frame_bucket: int = 64, rows: int | None = None) -> list[np.ndarray]:
+    """Per-frame VAD probabilities of ``net`` (a ``VideoVad``) over each
+    utterance's lip video, in one batched call on the network's device.
+
+    ``side["video"]`` holds one (frames, 67, 67) uint8 clip per utterance,
+    one crop per STFT frame (62.5 fps at the default STFT); frames past the
+    audio's count are dropped, fewer raise ValueError. The clips are
+    gathered into one uint8 host buffer, zero-padded in time to a multiple
+    of ``frame_bucket`` (and, with ``rows``, in the batch to ``rows`` blank
+    clips), uploaded in one copy as uint8, normalized on the device by
+    ``stats["video"]`` (the pixels' mean and std; None leaves them raw)
+    and run through ``net`` once. Every layer runs forward in time, so the
+    padding never reaches a valid frame. Returns one
+    (n_stft_frames_clamped, 1) float32 array per utterance."""
+    ns = [n_stft_frames_clamped(len(w), stft_cfg) for w in wavs]
+    if len(side["video"]) != len(ns):
+        raise ValueError(f"{len(side['video'])} clips for {len(ns)} utterances")
+    clips = [check_clip(c, n) for c, n in zip(side["video"], ns)]
+    b = max(rows or 0, len(ns))
+    t = -(-max(ns) // frame_bucket) * frame_bucket
+    with tracing.span("labels.video", utterances=len(ns), frames=sum(ns), padded_frames=b * t,
+                      clip_bytes=b * t * SIDE * SIDE):
+        dev = next(net.parameters()).device
+        with tracing.span("labels.upload"):
+            buf = np.zeros((b, t, SIDE, SIDE), np.uint8)
+            for i, (clip, n) in enumerate(zip(clips, ns)):
+                buf[i, :n] = clip[:n]
+            video = torch.from_numpy(buf).to(dev)
+        with tracing.span("labels.net"):
+            x = video.float()
+            if stats is not None:
+                mean, std = stats["video"]
+                x = (x - mean) / std
+            p = net(x).float().cpu().numpy()
+        return [np.ascontiguousarray(p[i, :n, None]) for i, n in enumerate(ns)]

@@ -4,11 +4,13 @@ reload, warmup and drain. Long-request chunking lives in chunking.py (mixed
 in), the HTTP layer in http.py, wire formats in wire.py and the Prometheus
 text in metrics.py.
 
-One worker thread does every piece of device work: self-soft labeling,
-padding, dispatch, collect and reload. Request threads touch only numpy.
-On the card, each batch is the ``Enhancer``'s main path: ``niter`` E-step
-chain launches and one Wiener launch of the MH-chain kernel, and one STFT
-power launch when the batch holds self-soft items.
+One worker thread does every piece of device work: labeling (self-soft,
+or a label network's over the requests' lip video), padding, dispatch,
+collect and reload. Request threads touch only numpy. On the card, each
+batch is the ``Enhancer``'s main path: ``niter`` E-step chain launches and
+one Wiener launch of the MH-chain kernel, one STFT power launch when the
+batch holds self-soft items, and one label network call when it holds
+"net" items.
 """
 
 from __future__ import annotations
@@ -21,9 +23,16 @@ import time
 import numpy as np
 
 from dvae_tpu_torch import tracing
-from dvae_tpu_torch.enhance.labeling import classify_method_of, constant_labels, self_soft_labels
+from dvae_tpu_torch.enhance.labeling import (
+    check_clip,
+    classify_method_of,
+    constant_labels,
+    self_soft_labels,
+    video_vad_labels,
+)
 from dvae_tpu_torch.enhance.mcem import fold_seed
 from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
+from dvae_tpu_torch.models.video_vad import SIDE
 from dvae_tpu_torch.ops.stft import n_stft_frames_clamped, samples_for_frames
 from dvae_tpu_torch.serving.chunking import _ChunkedStreamingMixin
 from dvae_tpu_torch.serving.types import (
@@ -44,12 +53,32 @@ class EnhanceService(_ChunkedStreamingMixin):
     CUDA unless ``"cpu"`` is passed (raises without a card), each device
     batch sharded over ``mesh`` when given. Thread-safe: ``submit``
     may be called from any number of threads.
+
+    ``label_net`` (a ``VideoVad``) labels the requests of y_source "net"
+    from the lip video each one sends (``submit(wav, video=clip)``: one
+    (frames, 67, 67) uint8 crop per STFT frame), normalized by
+    ``label_stats["video"]`` (the pixels' mean and std). The worker owns
+    it on the Enhancer's device and runs it once per batch, before the
+    dispatch; ``reload_checkpoint`` swaps the prior only. A label network
+    does not go with ``chunk_seconds > 0``: a chunk's labels would differ
+    from those of the whole clip.
     """
 
     def __init__(self, model, model_class: str, enh_cfg: EnhancerConfig = EnhancerConfig(),
-                 cfg: ServeConfig = ServeConfig(), device=None, mesh=None):
+                 cfg: ServeConfig = ServeConfig(), device=None, mesh=None, label_net=None,
+                 label_stats: dict | None = None):
         if cfg.y_source not in _Y_SOURCES:
             raise ValueError(f"bad y_source {cfg.y_source!r}")
+        if cfg.y_source == "net" and label_net is None:
+            raise ValueError('y_source "net" needs a label_net')
+        if label_net is not None:
+            if model_class == "m1":
+                raise ValueError("m1 takes no labels; serve it without a label_net")
+            if cfg.y_dim != 1:
+                raise ValueError(f"a VAD label_net gives y_dim 1, not {cfg.y_dim}")
+            if cfg.chunk_seconds > 0:
+                raise ValueError("a label_net labels whole clips; serve it with "
+                                 "chunk_seconds 0")
         self.model_class = model_class
         self.cfg = cfg
         self.enh_cfg = enh_cfg
@@ -63,6 +92,13 @@ class EnhanceService(_ChunkedStreamingMixin):
         # ``model`` itself to the device)
         self._template = copy.deepcopy(model).cpu()
         self.enhancer = Enhancer(model, enh_cfg, device=device, mesh=mesh)
+        self.label_net = None if label_net is None else label_net.to(self.device).eval()
+        self.label_stats = label_stats
+        # warm-up's labels: the network's where there is one, so that it
+        # runs at every bucket too
+        self._warm_source = ("net" if label_net is not None else
+                             "zeros" if self.conditional and self.classify_method is None
+                             else None)
         self.max_queue = max(1, cfg.max_queue)  # the actual admission bound
         self._q: queue.Queue = queue.Queue(maxsize=self.max_queue)
         self._lock = threading.Lock()
@@ -97,9 +133,13 @@ class EnhanceService(_ChunkedStreamingMixin):
     def _labels_for_batch(self, batch: list[_Item]) -> list[np.ndarray]:
         """Per-item (n_frames, y_dim) labels: constants per item; every
         self-soft item answered by one batched classifier call (one STFT
-        power launch on the card)."""
+        power launch on the card); every "net" item by one call of the
+        label network over the items' clips, its rows padded to
+        ``batch_size`` with blank clips and its frames to the Enhancer's
+        bucket, so that it runs at the shapes warm-up ran."""
         ys: list = [None] * len(batch)
         soft = [i for i, it in enumerate(batch) if it.y_source == "self-soft"]
+        net = [i for i, it in enumerate(batch) if it.y_source == "net"]
         for i, it in enumerate(batch):
             if it.y_source in ("ones", "zeros"):
                 n = n_stft_frames_clamped(len(it.wav), self.enh_cfg.stft)
@@ -111,17 +151,24 @@ class EnhanceService(_ChunkedStreamingMixin):
                 norm_eps=self.enh_cfg.norm_eps)
             for i, lab in zip(soft, labels):
                 ys[i] = lab
+        if net:
+            labels = video_vad_labels(
+                self.label_net, [batch[i].wav for i in net],
+                {"video": [batch[i].video for i in net]}, self.enh_cfg.stft, self.label_stats,
+                frame_bucket=self.enh_cfg.frame_bucket, rows=self.cfg.batch_size)
+            for i, lab in zip(net, labels):
+                ys[i] = lab
         return ys
 
     # -- request path ---------------------------------------------------------
     def _admit(self, wav: np.ndarray, y_source: str, count: bool,
-               bypass_drain: bool = False, count_reject: bool = True) -> _Item:
+               bypass_drain: bool = False, count_reject: bool = True, video=None) -> _Item:
         """Queue one work item. Admission is atomic with drain(): the
         draining check and the unfinished-work increment happen under the
         lock drain() reads, so a request is either refused or answered
         before drain() reports the service empty. ``bypass_drain`` is for
         the remaining chunks of an already started chunked request."""
-        item = _Item(wav, y_source, count)
+        item = _Item(wav, y_source, count, video)
         item.admitted = tracing.clock()
         with self._lock:
             if self._draining and not bypass_drain:
@@ -163,9 +210,11 @@ class EnhanceService(_ChunkedStreamingMixin):
             if len(self._latencies) > self._latency_window:
                 del self._latencies[:-self._latency_window]
 
-    def _check_scalars(self, n_samples: int, y_source: str | None) -> str:
+    def _check_scalars(self, n_samples: int, y_source: str | None, video=None) -> str:
         """Admission validation shared by submit/submit_stream[_from]:
-        raises ValueError (HTTP 400) before any work is queued."""
+        raises ValueError (HTTP 400) before any work is queued. A "net"
+        request needs a label network and its lip ``video``, with a crop
+        for each of its STFT frames; no other request takes video."""
         y_source = y_source or self.cfg.y_source
         if y_source not in _Y_SOURCES:
             raise ValueError(f"bad y_source {y_source!r}")
@@ -177,21 +226,33 @@ class EnhanceService(_ChunkedStreamingMixin):
                              f" exceeds the {self.cfg.max_audio_seconds:.0f}s cap")
         if n_samples == 0:
             raise ValueError("empty audio")
+        if self.label_net is None and (video is not None or y_source == "net"):
+            raise ValueError("this service has no label network to read video with")
+        if y_source == "net":
+            if video is None:
+                raise ValueError('y_source "net" labels a request from its lip video; '
+                                 "send video=")
+            check_clip(video, n_stft_frames_clamped(n_samples, self.enh_cfg.stft))
+        elif video is not None:
+            raise ValueError(f'video is read by y_source "net" only, not {y_source!r}')
         return y_source
 
-    def _check_request(self, wav, y_source: str | None) -> tuple[np.ndarray, str]:
-        y_source = self._check_scalars(len(wav), y_source)
-        return np.asarray(wav, np.float32), y_source
+    def _check_request(self, wav, y_source: str | None, video=None):
+        """(wav as float32, y_source, video as an array or None)."""
+        y_source = self._check_scalars(len(wav), y_source, video)
+        return (np.asarray(wav, np.float32), y_source,
+                None if video is None else np.asarray(video))
 
     def submit(self, wav: np.ndarray, y_source: str | None = None, timeout: float = 900.0,
-               _count_stats: bool = True) -> tuple[np.ndarray, np.ndarray]:
+               _count_stats: bool = True, video=None) -> tuple[np.ndarray, np.ndarray]:
         """Enhance one waveform (float, model rate). Blocks until its
         micro-batch returns; raises on worker-side failure. Returns
-        (s_hat, n_hat).
+        (s_hat, n_hat). ``video`` is the request's lip clip, which y_source
+        "net" needs: (frames, 67, 67) uint8, a crop per STFT frame.
 
         With ``cfg.chunk_seconds > 0``, longer requests split into chunk
         items riding the same queue and cross-fade back on this thread."""
-        wav, y_source = self._check_request(wav, y_source)
+        wav, y_source, video = self._check_request(wav, y_source, video)
         t0 = time.monotonic()
         chunk_samples = int(self.cfg.chunk_seconds * self.enh_cfg.stft.fs)
         # warmup traffic (_count_stats=False) must reach its bucket as one item
@@ -199,21 +260,22 @@ class EnhanceService(_ChunkedStreamingMixin):
             segs = list(self._stream_chunked(wav, y_source, timeout))
             out = (np.concatenate([s for s, _ in segs]), np.concatenate([n for _, n in segs]))
         else:
-            out = self._await(self._admit(wav, y_source, _count_stats), timeout)
+            out = self._await(self._admit(wav, y_source, _count_stats, video=video), timeout)
         if _count_stats:
             self._count_request(len(wav), t0)
         return out
 
     def submit_stream(self, wav: np.ndarray, y_source: str | None = None,
-                      timeout: float = 900.0):
+                      timeout: float = 900.0, video=None):
         """Enhance one waveform incrementally: returns a generator of
         ``(s_seg, n_seg)`` float32 pairs, in order, whose concatenations are
         :meth:`submit`'s ``(s_hat, n_hat)``. A chunked request yields each
         chunk's samples as they finalize; a short one yields once.
         Validation raises here, before anything is admitted; closing the
         generator abandons the chunks not yet served (an abandoned request
-        is not counted in the request stats)."""
-        wav, y_source = self._check_request(wav, y_source)
+        is not counted in the request stats). ``video`` as for
+        :meth:`submit`."""
+        wav, y_source, video = self._check_request(wav, y_source, video)
         chunk_samples = int(self.cfg.chunk_seconds * self.enh_cfg.stft.fs)
 
         def run():
@@ -221,7 +283,7 @@ class EnhanceService(_ChunkedStreamingMixin):
             if 0 < chunk_samples < len(wav):
                 yield from self._stream_chunked(wav, y_source, timeout)
             else:
-                yield self._await(self._admit(wav, y_source, True), timeout)
+                yield self._await(self._admit(wav, y_source, True, video=video), timeout)
             self._count_request(len(wav), t0)
         return run()
 
@@ -233,7 +295,8 @@ class EnhanceService(_ChunkedStreamingMixin):
         device batches through :meth:`Enhancer.reload`, so every
         single-item request is answered by one weights epoch (a chunked
         request spanning the swap may have its halves answered by the two).
-        On any error the running weights are untouched."""
+        The label network, if any, stays as it is. On any error the running
+        weights are untouched."""
         template = copy.deepcopy(self._template)
         try:
             load_checkpoint(path, template)
@@ -410,20 +473,24 @@ class EnhanceService(_ChunkedStreamingMixin):
         """Run one batch of each frame bucket before serving. On the card
         the first batch builds both kernels with nvcc, creates the CUDA
         context and fills the caching allocator; a build failure fails the
-        warmup. Client traffic that fills the queue meanwhile is retried
-        until the deadline, never taken for a broken model."""
+        warmup. With a label network each warm-up item is a "net" item
+        carrying a blank clip of its bucket's frames, so the network runs
+        at every bucket too. Client traffic that fills the queue meanwhile
+        is retried until the deadline, never taken for a broken model."""
         buckets = tuple(buckets if buckets is not None else self.cfg.warmup_buckets)
         deadline = time.monotonic() + timeout
+        y_source, video = self._warm_source, None
         for b in buckets:
             wav = np.zeros(samples_for_frames(int(b), self.enh_cfg.stft), np.float32)
+            if y_source == "net":
+                video = np.zeros((n_stft_frames_clamped(len(wav), self.enh_cfg.stft), SIDE,
+                                  SIDE), np.uint8)
             while True:
                 if self._draining:  # shutdown won the race: stand down
                     return
                 try:
-                    self.submit(wav, "zeros" if (self.conditional
-                                                 and self.classify_method is None) else None,
-                                timeout=max(1.0, deadline - time.monotonic()),
-                                _count_stats=False)
+                    self.submit(wav, y_source, timeout=max(1.0, deadline - time.monotonic()),
+                                _count_stats=False, video=video)
                     break
                 except ServiceOverloaded:
                     if self._draining:  # an operator stop mid-warmup: clean exit

@@ -7,7 +7,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 
-_Y_SOURCES = ("self-soft", "ones", "zeros")
+_Y_SOURCES = ("self-soft", "ones", "zeros", "net")
 
 
 class ServiceOverloaded(RuntimeError):
@@ -27,7 +27,9 @@ class EnhancementError(RuntimeError):
 class ServeConfig:
     batch_size: int = 8            # fixed device batch (pad with silence)
     batch_window_ms: float = 25.0  # max wait to fill a micro-batch
-    y_source: str = "self-soft"    # default labels for conditional models
+    y_source: str = "self-soft"    # default labels for conditional models;
+    #                                "net": the service's label network over
+    #                                each request's lip video
     y_dim: int = 1
     seed: int = 0
     max_audio_seconds: float = 600.0   # reject oversized requests up front
@@ -45,12 +47,13 @@ class ServeConfig:
 
 
 class _Item:
-    __slots__ = ("wav", "y_source", "done", "result", "error", "count",
+    __slots__ = ("wav", "y_source", "video", "done", "result", "error", "count",
                  "abandoned", "admitted")
 
-    def __init__(self, wav, y_source, count=True):
+    def __init__(self, wav, y_source, count=True, video=None):
         self.wav = wav
         self.y_source = y_source
+        self.video = video        # the request's lip clip, for y_source "net"
         self.done = threading.Event()
         self.result = None
         self.error = None

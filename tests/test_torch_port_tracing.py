@@ -19,10 +19,11 @@ import pytest
 import torch
 
 from dvae_tpu_torch import tracing
-from dvae_tpu_torch.enhance.labeling import self_soft_labels
+from dvae_tpu_torch.enhance.labeling import self_soft_labels, video_vad_labels
 from dvae_tpu_torch.enhance.mcem import McemConfig
 from dvae_tpu_torch.enhance.pipeline import Enhancer, EnhancerConfig
-from dvae_tpu_torch.models import VAE, DisentangledVAE
+from dvae_tpu_torch.models import VAE, DisentangledVAE, VideoVad
+from dvae_tpu_torch.ops.stft import n_stft_frames_clamped
 from dvae_tpu_torch.serving import EnhanceService, ServeConfig
 from _torch_port import one_torch_thread  # noqa: F401  (autouse)
 
@@ -200,6 +201,50 @@ def test_collect_empties_the_bounded_buffer(recorder, monkeypatch):
     (s,) = tracing.collect()
     assert (s.name, s.parent, s.attrs) == ("wait", None, {"k": 1})
     assert box[0] <= s.end_ns
+
+
+def test_the_video_labeller_records_its_upload_and_network_inside_its_span(recorder):
+    net = VideoVad(24, 2, 16, (4, 8, 8), generator=torch.Generator().manual_seed(0)).eval()
+    stft = EnhancerConfig().stft
+    wavs = _wavs((9000, 5000))
+    rng = np.random.default_rng(1)
+    frames = [n_stft_frames_clamped(len(w), stft) for w in wavs]
+    clips = [rng.integers(0, 256, (f + 2, 67, 67)).astype(np.uint8) for f in frames]
+    stats = {"video": [128.0, 64.0]}
+    got = video_vad_labels(net, wavs, {"video": clips}, stft, stats, frame_bucket=64, rows=3)
+    assert [len(y) for y in got] == frames
+    spans = tracing.collect()
+    by = {s.name: s for s in spans}
+    assert sorted(by) == ["labels.net", "labels.upload", "labels.video"] and len(spans) == 3
+    video, upload, run_net = by["labels.video"], by["labels.upload"], by["labels.net"]
+    assert video.parent is None
+    assert upload.parent == run_net.parent == "labels.video"
+    assert _inside(video, upload) and _inside(video, run_net)
+    assert upload.end_ns <= run_net.start_ns
+    # the clips go up as one uint8 buffer of 3 rows x 64 frames
+    assert video.attrs == {"utterances": 2, "frames": sum(frames), "padded_frames": 3 * 64,
+                           "clip_bytes": 3 * 64 * 67 * 67}
+    # off, the same call records nothing
+    tracing.disable()
+    again = video_vad_labels(net, wavs, {"video": clips}, stft, stats, frame_bucket=64, rows=3)
+    assert all(np.array_equal(a, b) for a, b in zip(got, again))
+    assert tracing.collect() == []
+
+
+def test_the_span_readings_of_the_video_labeller():
+    spans = [_span("labels.video", 0, 10, utterances=2, frames=100, padded_frames=128,
+                   clip_bytes=128 * 4489),
+             _span("labels.upload", 0, 2), _span("labels.net", 2, 9),
+             _span("labels.video", 20, 40, utterances=4, frames=200, padded_frames=256,
+                   clip_bytes=256 * 4489),
+             _span("labels.upload", 20, 24), _span("labels.net", 24, 39),
+             _span("labels.net", 50, 51)]  # outside every labeller call
+    r = span_readings.readings(spans)["labels.video"]
+    assert r == {"calls": 2, "ms": pytest.approx(15), "upload_ms": pytest.approx(3),
+                 "net_ms": pytest.approx(11), "utterances": 3.0, "frames": 150.0,
+                 "padded_frames": 192.0, "clip_bytes": 192.0 * 4489,
+                 "pad_share": pytest.approx(1 - 300 / 384)}
+    assert "labels.video" not in span_readings.readings(SYNTHETIC)
 
 
 def _span(name, a, b, thread=1, **attrs):

@@ -13,7 +13,8 @@ profiler has started and off after the window's final synchronize
 (``--spans 0`` leaves it off: the same traced run without the recorder).
 The last line of standard output is one JSON object: the cell, the seed,
 the result line's ``correct`` and end-to-end numbers, the span readings of
-:func:`readings` over the spans that lie in the window, the ten longest
+:func:`readings` over the spans that lie in the window (the video
+labeller's, :func:`video_readings`, where a label network runs), the ten longest
 idle gaps named by the innermost span open at their start (the probe's
 and the program's, ``service.queue`` left out: a wait, not host work), and
 how many of them start while a program span is open and are named by one.
@@ -39,6 +40,8 @@ sys.path.insert(0, str(ROOT))
 
 #: the dispatch's children that should partition it
 PARTS = ("enhancer.prepare", "enhancer.upload", "enhancer.enqueue")
+#: the attributes of the video labeller's span
+VIDEO_ATTRS = ("utterances", "frames", "padded_frames", "clip_bytes")
 
 
 def _ms(ns) -> float:
@@ -120,10 +123,32 @@ def readings(spans) -> dict:
         got = [s.end_ns - s.start_ns for s in ix.named(name)]
         if got:
             out[key] = _ms(np.median(got))
+    video = ix.named("labels.video")
+    if video:
+        out["labels.video"] = video_readings(ix, video)
     names = sorted({n for n, _ in ix.by})
     out["median_ms"] = {n: _ms(np.median([s.end_ns - s.start_ns for s in ix.named(n)]))
                         for n in names}
     out["count"] = {n: len(ix.named(n)) for n in names}
+    return out
+
+
+def video_readings(ix, video) -> dict:
+    """The video labeller's calls (``labels.video``): medians per call of
+    its time, of its upload (gather and copy) and of its network (forward
+    and copy back) inside it, and of its attributes; and the share of the
+    frames the network ran that were padding."""
+    def inner(name):
+        return [sum(s.end_ns - s.start_ns for s in ix.inside(v, name)) for v in video]
+
+    out = {"calls": len(video),
+           "ms": _ms(np.median([v.end_ns - v.start_ns for v in video])),
+           "upload_ms": _ms(np.median(inner("labels.upload"))),
+           "net_ms": _ms(np.median(inner("labels.net")))}
+    for attr in VIDEO_ATTRS:
+        out[attr] = float(np.median([v.attrs[attr] for v in video]))
+    padded = sum(v.attrs["padded_frames"] for v in video)
+    out["pad_share"] = 1.0 - sum(v.attrs["frames"] for v in video) / padded if padded else None
     return out
 
 
