@@ -4191,21 +4191,23 @@ def fast_stats_phase(model, wavs, batch, frames, cuda_ms, plain_chain, agree, ta
     for stats, e in enhancers.items():
         sync()
         torch.cuda.reset_peak_memory_stats()
-        mh_chain.launches = mh_chain.launches_mma = 0
+        mh_chain.launches = mh_chain.launches_mma = mh_chain.launches_resident = 0
         with chain_calls() as seen:
             out = e.enhance_batch(wavs, seed=SEED)
         peak_gib[stats] = torch.cuda.max_memory_allocated() / 2**30
-        n_all, n_mma = mh_chain.launches, mh_chain.launches_mma
+        n_all, n_mma, n_res = mh_chain.launches, mh_chain.launches_mma, mh_chain.launches_resident
         want = [(rows, False)] * mc.niter + [(rows, True)]
         part = partition_err(out)
         finite = (all(np.isfinite(s_).all() and np.isfinite(n_).all() for s_, n_ in out)
                   and np.isfinite(e.last_cost).all())
         log(f"phase 19: enhance_batch B={b} fast_stats={stats}: {n_all} mh_chain launches "
-            f"({n_mma} of the bf16 body; expected niter + 1 = {mc.niter + 1}), cost "
+            f"({n_mma} of the bf16 body, {n_res} in the resident layout; expected niter + 1 = "
+            f"{mc.niter + 1}, niter E-step segments resident at fast_stats), cost "
             f"{e.last_cost[0]:.5f} -> {e.last_cost[-1]:.5f}, outputs finite: {finite}, Wiener "
             f"partition {part:.3e} (limit 1e-4); peak device memory {peak_gib[stats]:.3f} GiB "
             f"{tag}")
-        check(n_all == n_mma == mc.niter + 1 and seen == want, f"fast_stats={stats}: launches")
+        check(n_all == n_mma == mc.niter + 1 and seen == want
+              and n_res == (mc.niter if stats else 0), f"fast_stats={stats}: launches")
         check(finite and part < 1e-4, f"fast_stats={stats}: finite outputs, partition")
         seen_main[stats] = seen
     walls = {True: [], False: []}
@@ -4763,18 +4765,22 @@ def main() -> int:
     cfg = EnhancerConfig()
     check(cfg.mcem.fast_decoder, "the default config runs the bf16 body")
     enh = Enhancer(model, cfg)
-    mh_chain.launches = mh_chain.launches_mma = nmf.launches = 0
+    mh_chain.launches = mh_chain.launches_mma = mh_chain.launches_resident = nmf.launches = 0
     t0 = time.perf_counter()
     out = enh.enhance_batch(wavs, seed=SEED)
     t_first = time.perf_counter() - t0
     launches, launches_mma, launches_m = mh_chain.launches, mh_chain.launches_mma, nmf.launches
+    launches_res = mh_chain.launches_resident
     want = cfg.mcem.niter + 1
     log(f"phase 3: enhance_batch B={B} ran {launches_mma} launches of the bf16 "
-        f"tensor-core body, {launches} mh_chain launches in all (expected niter + 1 = "
-        f"{want}), {launches_m} launches of the fused M-step (expected 3 niter = "
-        f"{3 * cfg.mcem.niter}), first call {t_first:.3f} s")
+        f"tensor-core body, {launches_res} of them in the resident layout (expected the "
+        f"niter = {cfg.mcem.niter} E-step segments, not the WF one), {launches} mh_chain "
+        f"launches in all (expected niter + 1 = {want}), {launches_m} launches of the fused "
+        f"M-step (expected 3 niter = {3 * cfg.mcem.niter}), first call {t_first:.3f} s")
     check(launches_mma == launches == want, f"{launches_mma} bf16 body launches of "
           f"{launches}, expected {want}")
+    check(launches_res == cfg.mcem.niter, f"{launches_res} resident-layout launches, expected "
+          f"{cfg.mcem.niter}")
     check(launches_m == 3 * cfg.mcem.niter, f"{launches_m} M-step kernel launches, expected "
           f"{3 * cfg.mcem.niter}")
     check(len(out) == B and all(len(s) == len(x) == len(n) for (s, n), x in zip(out, wavs)),
@@ -4785,13 +4791,15 @@ def main() -> int:
     log(f"phase 3: cost {cost[0]:.5f} -> {cost[-1]:.5f}, outputs finite")
 
     enh32 = Enhancer(model, EnhancerConfig(mcem=McemConfig(fast_decoder=False)))
-    mh_chain.launches = mh_chain.launches_mma = 0
+    mh_chain.launches = mh_chain.launches_mma = mh_chain.launches_resident = 0
     out32 = enh32.enhance_batch(wavs, seed=SEED)
     launches_f32 = mh_chain.launches - mh_chain.launches_mma
     log(f"phase 3: enhance_batch with fast_decoder=False ran {launches_f32} launches of "
-        f"the f32 body ({mh_chain.launches_mma} of the bf16 body); cost "
+        f"the f32 body ({mh_chain.launches_mma} of the bf16 body, "
+        f"{mh_chain.launches_resident} in the resident layout); cost "
         f"{enh32.last_cost[0]:.5f} -> {enh32.last_cost[-1]:.5f}")
-    check(launches_f32 == want and mh_chain.launches_mma == 0, "f32 body launch count")
+    check(launches_f32 == want and mh_chain.launches_mma == mh_chain.launches_resident == 0,
+          "f32 body launch count")
     check(all(np.isfinite(s).all() and np.isfinite(n).all() for s, n in out32),
           "finite outputs, f32 body")
 

@@ -56,14 +56,18 @@ _ARGS_DEPTH = 8
 # frame rows of one block's tile (the kernel's TR)
 _TILE_ROWS = 16
 #: the kernel's layouts, in the order the wrapper tries them (see
-#: ``csrc/mh_chain.cu``): the WF sums and the row bias in shared memory,
-#: then in global memory, then the hidden activations too
-LAYOUTS = ("shared", "lean", "wide")
+#: ``csrc/mh_chain.cu``): the bf16 body's E-step segments on bf16 planes
+#: with the packed decoder in shared memory and the planes in registers;
+#: then the WF sums and the row bias in shared memory, then in global
+#: memory, then the hidden activations too
+LAYOUTS = ("resident", "shared", "lean", "wide")
 
 # kernel launches since the last reset (only the launch in run_mh_chain
-# counts): all of them, and those of the bf16 tensor-core body
+# counts): all of them, those of the bf16 tensor-core body, and those in
+# the resident layout
 launches = 0
 launches_mma = 0
+launches_resident = 0
 
 
 def _find_decoder(module):
@@ -331,11 +335,11 @@ def build_library() -> ctypes.CDLL:
         launch.argtypes = ([p] * 6 + [pp, pp, ctypes.POINTER(i), i, i] + [p] * 8 + [i] * 10
                            + [ctypes.c_float, p])
         launch.restype = i
-    lib.mh_chain_smem_bytes.argtypes = [i] * 7
+    lib.mh_chain_smem_bytes.argtypes = [i, i, ctypes.POINTER(i)] + [i] * 5
     lib.mh_chain_smem_bytes.restype = ctypes.c_longlong
     lib.mh_chain_scratch_bytes.argtypes = [i, i]
     lib.mh_chain_scratch_bytes.restype = ctypes.c_longlong
-    lib.mh_chain_resident_blocks.argtypes = [i] * 8
+    lib.mh_chain_resident_blocks.argtypes = [i, i, ctypes.POINTER(i)] + [i] * 6
     lib.mh_chain_resident_blocks.restype = i
     return lib
 
@@ -346,17 +350,18 @@ def _span(widths: tuple) -> tuple:
 
 
 @functools.cache
-def _layout(f: int, l: int, widths: tuple, wf_mode: bool, mma: bool) -> int:
-    """The index in :data:`LAYOUTS` of the first layout whose block fits
-    in shared memory. Raises ValueError when none fits (decided once for
-    each shape)."""
+def _layout(f: int, l: int, widths: tuple, wf_mode: bool, mma: bool, stats: bool) -> int:
+    """The index in :data:`LAYOUTS` of the first layout that takes the
+    segment and whose block fits in shared memory. Raises ValueError when
+    none fits (decided once for each shape)."""
     lib = build_library()
 
     def smem(layout):
-        return lib.mh_chain_smem_bytes(f, l, *_span(widths), int(wf_mode), int(mma), layout)
+        return lib.mh_chain_smem_bytes(f, l, _ptrs(widths, ctypes.c_int), len(widths),
+                                       int(wf_mode), int(mma), int(stats), layout)
 
     for layout in range(len(LAYOUTS)):
-        if smem(layout) <= _MAX_SMEM:
+        if 0 <= smem(layout) <= _MAX_SMEM:
             return layout
     raise ValueError(f"the MH-chain kernel's block needs {smem(len(LAYOUTS) - 1)} B of "
                      f"shared memory in its {LAYOUTS[-1]} layout (> {_MAX_SMEM}): F={f} "
@@ -364,17 +369,26 @@ def _layout(f: int, l: int, widths: tuple, wf_mode: bool, mma: bool) -> int:
 
 
 @functools.cache
-def _resident_blocks(device: int, f: int, l: int, widths: tuple, wf_mode: bool, mma: bool,
-                     fast_stats: bool) -> int:
-    """Blocks of the wide layout's instantiation resident at once on CUDA
-    device ``device``: its grid at most (once for each shape)."""
+def _blocks_at_once(device: int, f: int, l: int, widths: tuple, wf_mode: bool, mma: bool,
+                    fast_stats: bool, layout: int) -> int:
+    """Blocks of a layout's instantiation resident at once on CUDA device
+    ``device``: the wide and resident layouts' grid at most (once for each
+    shape)."""
     gen = not 1 <= len(widths) <= _ARGS_DEPTH
     with torch.cuda.device(device):
-        n = build_library().mh_chain_resident_blocks(f, l, *_span(widths), int(wf_mode),
-                                                     int(mma), int(gen), int(fast_stats))
+        n = build_library().mh_chain_resident_blocks(
+            f, l, _ptrs(widths, ctypes.c_int), len(widths), int(wf_mode), int(mma), int(gen),
+            int(fast_stats), layout)
     if n < 1:
-        raise RuntimeError(f"mh_chain wide layout: no block fits on the card (cudaError {-n})")
+        raise RuntimeError(f"mh_chain {LAYOUTS[layout]} layout: no block fits on the card "
+                           f"(cudaError {-n})")
     return n
+
+
+def _device_index(device) -> int:
+    """The index of CUDA ``device`` (None: the current one)."""
+    dev = torch.device("cuda" if device is None else device)
+    return torch.cuda.current_device() if dev.index is None else dev.index
 
 
 def pack_mma_weight(w: torch.Tensor, n_multiple: int) -> torch.Tensor:
@@ -405,10 +419,13 @@ def _body_widths(mats, fast_decoder: bool) -> tuple:
     return mats.widths if fast_decoder else tuple(h + h % 2 for h in mats.widths)
 
 
-def chain_layout(mats, f: int, l: int, wf_mode: bool, fast_decoder: bool) -> str:
+def chain_layout(mats, f: int, l: int, wf_mode: bool, fast_decoder: bool,
+                 fast_stats: bool = False) -> str:
     """The layout (one of :data:`LAYOUTS`) in which the kernel runs this
-    decoder's segments at F ``f`` and L ``l``."""
-    return LAYOUTS[_layout(f, l, _body_widths(mats, fast_decoder), wf_mode, fast_decoder)]
+    decoder's segments at F ``f`` and L ``l`` on the planes of
+    ``fast_stats``."""
+    return LAYOUTS[_layout(f, l, _body_widths(mats, fast_decoder), wf_mode, fast_decoder,
+                           fast_stats)]
 
 
 def wide_scratch_bytes(mats, rows: int, f: int, l: int, wf_mode: bool, fast_decoder: bool,
@@ -418,12 +435,12 @@ def wide_scratch_bytes(mats, rows: int, f: int, l: int, wf_mode: bool, fast_deco
     in the wide layout, which is at most the blocks resident at once, so it
     stops growing with the rows; 0 in the other layouts."""
     widths = _body_widths(mats, fast_decoder)
-    if LAYOUTS[_layout(f, l, widths, wf_mode, fast_decoder)] != "wide":
+    layout = _layout(f, l, widths, wf_mode, fast_decoder, fast_stats)
+    if LAYOUTS[layout] != "wide":
         return 0
-    dev = torch.device("cuda" if device is None else device)
-    idx = torch.cuda.current_device() if dev.index is None else dev.index
     blocks = min(-(-rows // _TILE_ROWS),
-                 _resident_blocks(idx, f, l, widths, wf_mode, fast_decoder, fast_stats))
+                 _blocks_at_once(_device_index(device), f, l, widths, wf_mode, fast_decoder,
+                                 fast_stats, layout))
     return blocks * build_library().mh_chain_scratch_bytes(_span(widths)[1], int(fast_decoder))
 
 
@@ -510,7 +527,7 @@ def _ptrs(values, ctype):
 
 def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
             fast_decoder, fast_stats):
-    global launches, launches_mma
+    global launches, launches_mma, launches_resident
     rows, f = x2.shape
     l = z.shape[-1]
     layers, w_out, b_out, table = _packed(mats, fast_decoder)
@@ -524,14 +541,18 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
         # the hidden layers read 2 weight columns at a time as one 8-byte load
         if any(w.data_ptr() % 8 for w, _ in layers):
             raise ValueError("the f32 body needs 8-byte aligned hidden weights")
-    layout = _layout(f, l, widths, wf_mode, fast_decoder)
-    scratch, slots = None, 0
+    layout = _layout(f, l, widths, wf_mode, fast_decoder, fast_stats)
+    resident = LAYOUTS[layout] == "resident"
+    scratch, blocks = None, 0
     n_scratch = wide_scratch_bytes(mats, rows, f, l, wf_mode, fast_decoder, fast_stats,
                                    x2.device)
     if n_scratch:
         scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=x2.device)
-        slots = n_scratch // build_library().mh_chain_scratch_bytes(_span(widths)[1],
-                                                                    int(fast_decoder))
+        blocks = n_scratch // build_library().mh_chain_scratch_bytes(_span(widths)[1],
+                                                                     int(fast_decoder))
+    elif resident:
+        blocks = _blocks_at_once(_device_index(x2.device), f, l, widths, wf_mode, fast_decoder,
+                                 fast_stats, layout)
     ws = _ptrs([w.data_ptr() for w, _ in layers], ctypes.c_void_p)
     bs = _ptrs([None if b is None else b.data_ptr() for _, b in layers], ctypes.c_void_p)
     z_out = torch.empty((rows, l), device=x2.device)
@@ -550,7 +571,7 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
             noise.data_ptr(), ws, bs, _ptrs(widths, ctypes.c_int), len(widths),
             _span(widths)[1], None if table is None else table.data_ptr(), w_out.data_ptr(),
             by.data_ptr() if b_out is None else b_out.data_ptr(), z_out.data_ptr(), samples_p,
-            wfs_p, wfn_p, None if scratch is None else scratch.data_ptr(), slots, rows, f, l,
+            wfs_p, wfn_p, None if scratch is None else scratch.data_ptr(), blocks, rows, f, l,
             n_burn + n_samples, n_burn, by_stride, int(wf_mode), layout, int(fast_stats),
             math.sqrt(var_rw), torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -558,6 +579,7 @@ def _launch(mats, x2, vb, g, z, by, noise, n_burn, n_samples, var_rw, wf_mode,
                            f"H={mats.widths}, {LAYOUTS[layout]} layout)")
     launches += 1
     launches_mma += fast_decoder
+    launches_resident += resident
     return (z_out, *outs)
 
 

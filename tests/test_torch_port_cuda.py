@@ -167,11 +167,14 @@ def test_cuda_default_config_runs_the_bf16_body(cuda):
     cfg = McemConfig()
     assert cfg.fast_decoder
     before, before_mma = mh_chain.launches, mh_chain.launches_mma
+    before_res = mh_chain.launches_resident
     res = run_mcem(mats, x2.reshape(b, n, F), z0.reshape(b, n, L),
                    torch.ones((b, n), device=cuda), 0, cfg)
     torch.cuda.synchronize()
     assert mh_chain.launches_mma == before_mma + cfg.niter + 1
     assert mh_chain.launches == before + cfg.niter + 1
+    # the E-step segments (bf16 planes) in the resident layout, not the WF one
+    assert mh_chain.launches_resident == before_res + cfg.niter
     assert torch.isfinite(res.wfs).all() and torch.isfinite(res.cost).all()
 
 
@@ -311,10 +314,11 @@ def test_cuda_fast_stats_chain_matches_plain(cuda, wf_mode, var_rw, fast):
     x2h, vbh = x2.to(torch.bfloat16), vb if wf_mode else vb.to(torch.bfloat16)
     noise = make_chain_noise(8, rows, L, gen, cuda)
     args = (mats, x2h, vbh, g, z0, None, noise, 4, 4, var_rw, wf_mode, fast)
-    before = mh_chain.launches
+    before, before_res = mh_chain.launches, mh_chain.launches_resident
     zk, *ok = run_mh_chain(*args, fast_stats=True)
     torch.cuda.synchronize()
     assert mh_chain.launches == before + 1
+    assert mh_chain.launches_resident == before_res + (fast and not wf_mode)
     zr, *orf = mh_chain_reference(*args, fast_stats=True)
     same = (zk - zr).abs().amax(-1) < 1e-4
     assert same.float().mean() > (0.999 if var_rw == 0.0 else 0.99)
@@ -327,6 +331,42 @@ def test_cuda_fast_stats_chain_matches_plain(cuda, wf_mode, var_rw, fast):
                                    atol=0)
     else:
         _close_emitted(ok[0][:, same], orf[0][:, same], fast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["m1", "row-bias", "wide-range"])
+def test_cuda_resident_layout_matches_the_shared_layout_bit_for_bit(cuda, monkeypatch, case):
+    """E-step segments on bf16 planes run the resident layout; the shared
+    layout, forced on the same inputs, gives the same z and samples bit for
+    bit: the same products, sums and roundings in the same order. Rows not
+    a tile multiple, a folded row bias, and planes across f32's range (the
+    division's slow path)."""
+    rows = 2000 if case == "wide-range" else 1000
+    mats, x2, vb, g, z0, gen = _problem(cuda, rows, seed=13)
+    if case == "row-bias":
+        y = torch.rand((rows, 2), generator=gen, device=cuda)
+        w1y = 0.3 * torch.randn((2, mats.widths[0]), generator=gen, device=cuda)
+        mats = mh_chain.fold_conditioning(mats._replace(w1y=w1y), y, True)
+    if case == "wide-range":
+        x2 = x2 * 10.0 ** (torch.rand((rows, F), generator=gen, device=cuda) * 75 - 40)
+        x2[:, ::7] = 0.0
+        vb = vb * 10.0 ** (torch.rand((rows, F), generator=gen, device=cuda) * 37 - 12)
+    noise = make_chain_noise(8, rows, L, gen, cuda)
+    args = (mats, x2.to(torch.bfloat16), vb.to(torch.bfloat16), g, z0, None, noise, 4, 4, 0.01,
+            False, True)
+    assert mh_chain.chain_layout(mats, F, L, False, True, True) == "resident"
+    before = mh_chain.launches_resident
+    z_res, s_res = run_mh_chain(*args, fast_stats=True)
+    torch.cuda.synchronize()
+    assert mh_chain.launches_resident == before + 1
+    layout = mh_chain._layout
+    monkeypatch.setattr(mh_chain, "_layout", lambda *a: max(layout(*a), 1))
+    z_sh, s_sh = run_mh_chain(*args, fast_stats=True)
+    torch.cuda.synchronize()
+    assert mh_chain.launches_resident == before + 1
+    assert torch.equal(z_res, z_sh) and torch.equal(s_res, s_sh)
+    if case != "wide-range":
+        assert (z_res != z0).any(-1).float().mean() > 0.5  # a live chain
 
 
 @pytest.mark.cuda

@@ -249,3 +249,189 @@ def test_plane_accesses_are_conflict_free(f):
     # at the plain stride F the same accesses conflict
     if f == 513:
         assert _wavefronts(G * f + 2 * T) > 1
+
+
+# ---- the resident layout (E-step segments on bf16 planes at depth 2): the
+# packed decoder in shared memory, the planes in the registers of the lanes
+# whose layer-3 accumulators produce them
+
+# layer 3's warps, the block's warps, layer-3 n-tiles a lane holds, rows of a tile
+NWM, NWR, NTW, TR = 13, 16, 5, 16
+MAX_SMEM = 232448
+
+
+def _r16(n):
+    return -(-n // 16) * 16
+
+
+def _resident_smem(f, l, widths, wf_mode=False, fast_decoder=True, fast_stats=True):
+    """Bytes of the resident layout's block as ``csrc/mh_chain.cu`` counts
+    them (``layout_smem``), None where the layout does not take the
+    segment: the packed weights, the padded biases of layers 2 and 3, the
+    tile's first-layer bias [TR][H0_16] (per row or not), z' [L][TR], the
+    partial energies [NWM][TR], ||z'||^2, the acceptances and the accepted
+    halves, the bf16 activations z', h1, h2 at rows of K16 + 8, and
+    bf16(Vs) double-buffered at the planes' row stride."""
+    if not (fast_decoder and fast_stats and not wf_mode and len(widths) == 2):
+        return None
+    f8 = -(-f // 8) * 8
+    if f8 // 8 > NWM * NTW or TR * (l + 1) > NWR * 32:
+        return None
+    h0, h1 = widths
+
+    def frags(k, n):
+        return _r16(k) // 16 * (-(-n // 8)) * 32
+
+    uint2s = frags(l, _r16(h0)) + frags(h0, _r16(h1)) + frags(h1, f8)
+    floats = _r16(h1) + f8 + TR * _r16(h0) + TR * l + NWM * TR + 3 * TR
+    halves = TR * (_r16(l) + 8 + _r16(h0) + 8 + _r16(h1) + 8) + 2 * TR * _plane_ld(f)
+    return 8 * uint2s + 4 * floats + 2 * halves
+
+
+def _lane_elements(warp, f):
+    """(row, column) of each accumulator element a lane of ``warp`` holds
+    across its layer-3 n-tiles warp + NWM i: register (i, hh, e) is c_(2 hh
+    + e) of n-tile i, as the m16n8k16 accumulator lays it out."""
+    out = {}
+    for i in range(NTW):
+        nt = warp + NWM * i
+        for c_i in range(4):
+            r, c = _c_at(c_i)
+            out[(i, c_i)] = (r, 8 * nt + c)
+    return out
+
+
+@pytest.mark.parametrize("f", [513, 512, 257, 37])
+def test_resident_planes_cover_each_element_once(f):
+    """Every (row < 16, column < F) of a tile's planes is held by exactly
+    one (warp, lane, register), and the register is the accumulator
+    element of layer 3 that produces it."""
+    seen = np.zeros((TR, f), int)
+    for warp in range(NWM):
+        for (i, c_i), (rows, cols) in _lane_elements(warp, f).items():
+            # the kernel's own index arithmetic for register (i, hh, e)
+            hh, e = c_i // 2, c_i % 2
+            assert (rows == G + 8 * hh).all()
+            assert (cols == (warp + NWM * i) * 8 + 2 * T + e).all()
+            for r, c in zip(rows, cols):
+                if c < f:
+                    seen[r, c] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("l", [16, 10, 31])
+def test_resident_noise_values_have_one_thread_each(l):
+    """Thread r (L + 1) + c carries noise value c of row r: one thread for
+    each of the step's TR x (L + 1) values, within the block."""
+    tids = [r * (l + 1) + c for r in range(TR) for c in range(l + 1)]
+    assert sorted(tids) == list(range(TR * (l + 1))) and max(tids) < NWR * 32
+
+
+@pytest.mark.parametrize("widths", WIDTHS, ids=["m1", "nonsquare", "padded"])
+def test_resident_weight_reads_are_conflict_free(widths):
+    """The packed weights sit back to back in shared memory; each warp's
+    B-fragment read (8 bytes a lane, lane after lane) is two wavefronts,
+    the fewest for 64-bit accesses, at every k-step and n-tile of each
+    layer, and so are the output bias's float2 reads (four addresses, each
+    read by the lanes of one t)."""
+    l, h1, h2, f = widths
+    mats = DecoderMats(torch.randn(l, h1), None, torch.randn(h1), ((torch.randn(h1, h2),
+                       torch.randn(h2)),), torch.randn(h2, f), torch.randn(f))
+    ((w1p, _), (w2p, _)), wop, _ = pack_decoder_mma(mats)
+    base = 0  # in 32-bit words
+    for packed in (w1p, w2p, wop):
+        ks_n, n_tiles = packed.shape[:2]
+        for ks in range(ks_n):
+            for nt in range(n_tiles):
+                words = base + 2 * ((ks * n_tiles + nt) * 32 + LANES)
+                assert _wavefronts(words, words_per_lane=2) == 2
+        base += packed.numel() // 2
+    assert base % 4 == 0  # the biases after the weights stay 16-byte aligned
+    for nt in range(-(-f // 8)):
+        assert _wavefronts(8 * nt + 2 * T, words_per_lane=2) == 2
+
+
+def test_resident_weights_are_the_pack():
+    """The layout's weight area is exactly the pack's bytes (169,984 at
+    M1's widths), beside 55,584 B of the rest."""
+    mats = DecoderMats(torch.randn(16, 128), None, torch.randn(128),
+                       ((torch.randn(128, 128), torch.randn(128)),), torch.randn(128, 513),
+                       torch.randn(513))
+    ((w1p, _), (w2p, _)), wop, _ = pack_decoder_mma(mats)
+    packed = sum(t.numel() * t.element_size() for t in (w1p, w2p, wop))
+    assert packed == 169984
+    rest = 4 * (128 + 520 + TR * 128 + TR * 16 + NWM * TR + 3 * TR) + 2 * TR * (
+        24 + 136 + 136 + 2 * 520)
+    assert rest == 55584
+    assert _resident_smem(513, 16, (128, 128)) == packed + rest == 225568
+
+
+@pytest.mark.parametrize("row_bias", [False, True], ids=["m1", "m2info"])
+def test_resident_fits_at_the_main_path(row_bias):
+    """M1 (one first-layer bias) and M2-info (a folded row bias) take the
+    same block: the tile's bias slab is [TR][H0] either way."""
+    mats = DecoderMats(torch.randn(16, 128), None, torch.randn(128),
+                       ((torch.randn(128, 128), torch.randn(128)),), torch.randn(128, 513),
+                       torch.randn(513))
+    if row_bias:
+        mats = _fold_bias_mats(mats, rows=64)
+        assert mats.b1.shape == (64, 128)
+    assert _resident_smem(513, 16, mats.widths) <= MAX_SMEM
+
+
+def _fold_bias_mats(mats, rows):
+    w1y = torch.randn(1, mats.w1z.shape[1])
+    y = torch.rand(rows, 1)
+    return mats._replace(w1y=None, b1=_fold_bias(mats._replace(w1y=w1y), y, rows, True))
+
+
+@pytest.mark.parametrize("case", [
+    dict(widths=(256, 256)), dict(widths=(128, 128), wf_mode=True),
+    dict(widths=(128, 128), fast_stats=False), dict(widths=(128, 128), fast_decoder=False),
+    dict(widths=(128, 128, 128)), dict(widths=(128, 128), f=1025),
+    dict(widths=(128, 128), l=32)],
+    ids=["h256", "wf", "f32-planes", "f32-body", "depth3", "f1025", "l32"])
+def test_resident_refuses_what_it_does_not_take(case):
+    """Decoders too wide for shared memory (H 256/256: W_out alone is 266
+    KB), WF segments, f32 planes, the f32 body, other depths, more layer-3
+    n-tiles than the lanes hold, more noise values than threads."""
+    case = dict(case)
+    f, l = case.pop("f", 513), case.pop("l", 16)
+    got = _resident_smem(f, l, **case)
+    assert got is None or got > MAX_SMEM
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_resident_smem_matches_the_kernel(cuda):
+    """The kernel counts the resident block as :func:`_resident_smem`
+    does, and refuses the segments it does not take (-1); the wrapper
+    picks the layout where it fits."""
+    import ctypes
+
+    from dvae_tpu_torch.enhance import mh_chain
+
+    lib = mh_chain.build_library()
+    resident = mh_chain.LAYOUTS.index("resident")
+    cases = [(513, 16, (128, 128)), (513, 16, (128, 64)), (513, 10, (100, 40)),
+             (257, 16, (128, 256)), (513, 16, (256, 256)), (1025, 16, (64, 64)),
+             (513, 16, (128, 128, 128))]
+    for f, l, widths in cases:
+        for wf, stats, mma in ((False, True, True), (True, True, True), (False, False, True),
+                               (False, True, False)):
+            want = _resident_smem(f, l, widths, wf, mma, stats)
+            got = lib.mh_chain_smem_bytes(f, l, (ctypes.c_int * len(widths))(*widths),
+                                          len(widths), int(wf), int(mma), int(stats), resident)
+            assert got == (-1 if want is None else want), (f, l, widths, wf, stats, mma)
+    mats = DecoderMats(torch.randn(16, 128), None, torch.randn(128),
+                       ((torch.randn(128, 128), torch.randn(128)),), torch.randn(128, 513),
+                       torch.randn(513))
+    assert mh_chain.chain_layout(mats, 513, 16, False, True, True) == "resident"
+    assert mh_chain.chain_layout(mats, 513, 16, True, True, True) == "shared"
+    assert mh_chain.chain_layout(mats, 513, 16, False, True, False) == "shared"

@@ -9,16 +9,18 @@ Each ``<root>`` is a directory that holds a ``dvae_tpu_torch`` package (a
 ``git archive`` of another commit, or ``.``). Every round runs each root
 in a process of its own, the order reversed every other round (A B B A
 ...), and each process builds its own kernel and times the bf16 body at
-the main path's shapes: E-step and WF segments (30 + 10 and 75 + 25
-steps) at 10,240 rows (F 513, L 16, H 128/128, or the decoder of
-``--h-dim`` in the order the CLIs take it), with f32 planes and, where
-the package has ``fast_stats``, with its bf16 planes; CUDA events over 20
-warm calls of the wrapper. With ``--f32-routes`` each process times the
-f32 body instead, at a depth of 1 to 8, twice: its hidden layers read
-from the kernel's arguments (as the wrapper runs it) and from the device
-table the kernel reads at other depths, in turns (A B B A). Prints one
-line per process and, last, one JSON object with each root's median per
-segment and the card's name and power limit. Needs a CUDA card.
+the main path's shapes (F 513, L 16, H 128/128, or the decoder of
+``--h-dim`` in the order the CLIs take it): E-step and WF segments (30 +
+10 and 75 + 25 steps) at 10,240 rows, a served batch's E-step at 2,560
+rows and pmcem's E-step (3 + 1 steps) at 102,400 rows, with f32 planes
+and, where the package has ``fast_stats``, with its bf16 planes; CUDA
+events over 20 warm calls of the wrapper. With ``--f32-routes`` each
+process times the f32 body instead, at a depth of 1 to 8, twice: its
+hidden layers read from the kernel's arguments (as the wrapper runs it)
+and from the device table the kernel reads at other depths, in turns (A
+B B A). Prints one line per process and, last, one JSON object with each
+root's median per segment and the card's name and power limit. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -29,8 +31,10 @@ import os
 import subprocess
 import sys
 
-ROWS, F, L = 10240, 513, 16
-SEGMENTS = (("E-step", False, 30, 10), ("WF", True, 75, 25))
+F, L = 513, 16
+# (name, rows, WF mode, burn-in, samples)
+SEGMENTS = (("E-step", 10240, False, 30, 10), ("WF", 10240, True, 75, 25),
+            ("served E-step", 2560, False, 30, 10), ("pmcem E-step", 102400, False, 3, 1))
 
 
 def _time_root(h_dim: tuple, f32_routes: bool) -> dict:
@@ -51,10 +55,11 @@ def _time_root(h_dim: tuple, f32_routes: bool) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     model = init_xavier_(VAE(F, L, h_dim), torch.Generator().manual_seed(0)).to(dev)
     mats = extract_decoder_mlp(model, L)
-    x2 = torch.rand((ROWS, F), generator=gen, device=dev) + 0.05
-    vb = torch.rand((ROWS, F), generator=gen, device=dev) + 0.05
-    g = torch.rand((ROWS,), generator=gen, device=dev) + 0.5
-    z0 = 0.1 * torch.randn((ROWS, L), generator=gen, device=dev)
+    rows_max = max(rows for _, rows, *_ in SEGMENTS)
+    x2_all = torch.rand((rows_max, F), generator=gen, device=dev) + 0.05
+    vb_all = torch.rand((rows_max, F), generator=gen, device=dev) + 0.05
+    g_all = torch.rand((rows_max,), generator=gen, device=dev) + 0.5
+    z0_all = 0.1 * torch.randn((rows_max, L), generator=gen, device=dev)
 
     def cuda_ms(fn, reps=20, warm=3):
         for _ in range(warm):
@@ -81,8 +86,9 @@ def _time_root(h_dim: tuple, f32_routes: bool) -> dict:
         if not 1 <= len(h_dim) <= args_depth:
             raise SystemExit(f"--f32-routes: depth {len(h_dim)} reads the table either way")
     out = {}
-    for name, wf, n_burn, n_samp in SEGMENTS:
-        noise = make_chain_noise(n_burn + n_samp, ROWS, L, gen, dev)
+    for name, rows, wf, n_burn, n_samp in SEGMENTS:
+        x2, vb, g, z0 = x2_all[:rows], vb_all[:rows], g_all[:rows], z0_all[:rows]
+        noise = make_chain_noise(n_burn + n_samp, rows, L, gen, dev)
         args = (g, z0, None, noise, n_burn, n_samp, 0.01, wf, not f32_routes)
         x2h, vbh = x2.to(torch.bfloat16), vb if wf else vb.to(torch.bfloat16)
         runs = {"f32": lambda: run_mh_chain(mats, x2, vb, *args)}
